@@ -1,0 +1,267 @@
+"""Connected-components kernels K2 and K3 and the split ids route.
+
+The JAX package labels the DB decode's 1024x1024 bitmap with two Pallas
+kernels (``comic_text_detector_tpu/ops/pallas_kernels.py``):
+
+* K2 ``_cc_window_kernel`` via ``cc_windows_local``: each foreground pixel
+  gets its 8-connected component's minimum window-local linear index;
+  background gets 2**30.
+* K3 ``_min_prop_kernel`` via ``min_prop_windows_local``: each foreground
+  pixel gets the minimum seed over its component; background gets 0.
+
+``cc_ids_windows_local`` chains them as the JAX split route does: K2, a
+cumsum of the roots in raster order, K3.  Its output is 1-based component
+ids in raster order of each component's root, 0 on background.
+
+Here both kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
+plain-C shared library on first use and bound with ``ctypes``.  Each wrapper
+launches its kernel for a CUDA tensor, uses the plain PyTorch version beside
+it for a CPU tensor, and counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+CC_BIG = 2**30
+_INT32_MAX = 2**31 - 1
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "cc.cu")
+_BUILD_DIR = os.path.join(_PKG_DIR, "build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# W, NW, N, NE: each 8-neighbour pair is visited once, from its later pixel
+_BACK_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path() -> str:
+    """Where the built library lives; the name carries a hash of the source
+    and flags, so an edited source never loads a stale build."""
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libctd_cc_{digest}.so")
+
+
+def build() -> float:
+    """Compile ``csrc/cc.cu`` with one nvcc call unless the library exists.
+    Returns the seconds spent compiling (0.0 when it was already built)."""
+    out = library_path()
+    if os.path.exists(out):
+        return 0.0
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE], check=True)
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    build()
+    lib = ctypes.CDLL(library_path())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ctd_cc_window.argtypes = [p, p, p, i, i, i, p]
+    lib.ctd_cc_window.restype = i
+    lib.ctd_min_prop_window.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.ctd_min_prop_window.restype = i
+    lib.ctd_error_string.argtypes = [i]
+    lib.ctd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_windows(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.dtype != dtype or t.dim() != 3:
+        raise ValueError(f"{name}: expected a (N, H, W) {dtype} tensor, got {tuple(t.shape)} {t.dtype}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.shape[1] * t.shape[2] >= CC_BIG:
+        raise ValueError(f"{name}: window {tuple(t.shape[1:])} too large for int32 labels")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU route and the kernels' yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _root_index_plain(fg: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) bool -> int64 (N*H*W,) where every foreground pixel holds
+    its component's minimum flat index (hook-to-min union-find rounds, each
+    followed by full pointer jumping)."""
+    n, h, w = fg.shape
+    flat = torch.arange(n * h * w, device=fg.device).view(n, h, w)
+    src, dst = [], []
+    for dy, dx in _BACK_NEIGHBOURS:
+        rows = slice(1, h) if dy else slice(0, h)
+        rows_q = slice(0, h - 1) if dy else slice(0, h)
+        cols = slice(max(-dx, 0), w - max(dx, 0))
+        cols_q = slice(max(dx, 0), w - max(-dx, 0))
+        both = fg[:, rows, cols] & fg[:, rows_q, cols_q]
+        src.append(flat[:, rows, cols][both])
+        dst.append(flat[:, rows_q, cols_q][both])
+    src, dst = torch.cat(src), torch.cat(dst)
+    parent = flat.reshape(-1).clone()
+    # each round that changes anything lowers sum(parent), so the bound is
+    # never reached; real masks converge in a handful of rounds
+    for _ in range(n * h * w + 1):
+        rp, rq = parent[src], parent[dst]
+        hi, lo = torch.maximum(rp, rq), torch.minimum(rp, rq)
+        if not bool((hi != lo).any()):
+            return parent
+        parent.scatter_reduce_(0, hi, lo, "amin")
+        for _ in range(64):  # pointer jumping halves every path: <= 64 rounds
+            nxt = parent[parent]
+            if torch.equal(nxt, parent):
+                break
+            parent = nxt
+    raise RuntimeError("connected components did not converge")
+
+
+def cc_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: (N, H, W) uint8 -> int32 component-min local
+    linear index on foreground, 2**30 on background."""
+    n, h, w = masks_u8.shape
+    fg = masks_u8 != 0
+    root = _root_index_plain(fg).view(n, h, w)
+    base = (torch.arange(n, device=fg.device) * (h * w)).view(n, 1, 1)
+    return torch.where(fg, root - base, CC_BIG).to(torch.int32)
+
+
+def min_prop_windows_local_plain(masks_u8: torch.Tensor, seeds_i32: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the minimum foreground seed of each component
+    spread over it, 0 on background."""
+    fg = masks_u8 != 0
+    root = _root_index_plain(fg)
+    fgf = fg.reshape(-1)
+    slot = torch.full((fgf.numel(),), _INT32_MAX, dtype=torch.int64, device=fg.device)
+    slot.scatter_reduce_(0, root[fgf], seeds_i32.reshape(-1)[fgf].long(), "amin")
+    out = torch.where(fgf, slot[root], 0)
+    return out.view(masks_u8.shape).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def launch_cc_window(masks_u8: torch.Tensor, out: torch.Tensor, err: torch.Tensor) -> None:
+    """Enqueue K2 on the current stream (no count, no sync); raises if the
+    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    n, h, w = masks_u8.shape
+    lib = _lib()
+    stream = torch.cuda.current_stream(masks_u8.device).cuda_stream
+    rc = lib.ctd_cc_window(masks_u8.data_ptr(), out.data_ptr(), err.data_ptr(), n, h, w, stream)
+    if rc != 0:
+        raise RuntimeError(f"cc_windows_local: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
+
+
+def launch_min_prop_window(masks_u8: torch.Tensor, seeds_i32: torch.Tensor, parent: torch.Tensor,
+                           out: torch.Tensor, err: torch.Tensor) -> None:
+    """Enqueue K3 on the current stream (no count, no sync); raises if the
+    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    n, h, w = masks_u8.shape
+    lib = _lib()
+    stream = torch.cuda.current_stream(masks_u8.device).cuda_stream
+    rc = lib.ctd_min_prop_window(
+        masks_u8.data_ptr(), seeds_i32.data_ptr(), parent.data_ptr(), out.data_ptr(),
+        err.data_ptr(), n, h, w, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"min_prop_windows_local: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
+
+
+def _raise_on_bound(err: torch.Tensor, name: str) -> None:
+    if int(err.item()) != 0:
+        raise RuntimeError(f"{name}: a union-find loop exceeded its bound")
+
+
+def cc_windows_local(masks_u8: torch.Tensor) -> torch.Tensor:
+    """K2: per-window 8-connected CC of (N, H, W) uint8 masks -> (N, H, W)
+    int32 component-min local linear index, 2**30 on background."""
+    _check_windows(masks_u8, torch.uint8, "cc_windows_local")
+    if masks_u8.device.type == "cpu":
+        return cc_windows_local_plain(masks_u8)
+    masks_u8 = masks_u8.contiguous()
+    out = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    err = torch.zeros(1, dtype=torch.int32, device=masks_u8.device)
+    launch_cc_window(masks_u8, out, err)
+    cc_windows_local.launches += 1
+    _raise_on_bound(err, "cc_windows_local")
+    return out
+
+
+def min_prop_windows_local(masks_u8: torch.Tensor, seeds_i32: torch.Tensor) -> torch.Tensor:
+    """K3: per-window component-min of int32 seeds -> (N, H, W) int32, the
+    minimum seed of each foreground pixel's component, 0 on background."""
+    _check_windows(masks_u8, torch.uint8, "min_prop_windows_local")
+    _check_windows(seeds_i32, torch.int32, "min_prop_windows_local")
+    if seeds_i32.shape != masks_u8.shape or seeds_i32.device != masks_u8.device:
+        raise ValueError("min_prop_windows_local: masks and seeds differ in shape or device")
+    if masks_u8.device.type == "cpu":
+        return min_prop_windows_local_plain(masks_u8, seeds_i32)
+    masks_u8, seeds_i32 = masks_u8.contiguous(), seeds_i32.contiguous()
+    parent = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    out = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    err = torch.zeros(1, dtype=torch.int32, device=masks_u8.device)
+    launch_min_prop_window(masks_u8, seeds_i32, parent, out, err)
+    min_prop_windows_local.launches += 1
+    _raise_on_bound(err, "min_prop_windows_local")
+    return out
+
+
+cc_windows_local.launches = 0
+min_prop_windows_local.launches = 0
+
+
+def _split_ids(masks_u8: torch.Tensor, labels_fn, prop_fn) -> torch.Tensor:
+    _check_windows(masks_u8, torch.uint8, "cc_ids_windows_local")
+    n, h, w = masks_u8.shape
+    labels = labels_fn(masks_u8)
+    lin = torch.arange(h * w, dtype=torch.int32, device=masks_u8.device).view(1, h, w)
+    is_root = (labels == lin) & (masks_u8 != 0)
+    rank = torch.cumsum(is_root.view(n, h * w), dim=1, dtype=torch.int32).view(n, h, w)
+    return prop_fn(masks_u8, torch.where(is_root, rank, CC_BIG))
+
+
+def cc_ids_windows_local(masks_u8: torch.Tensor) -> torch.Tensor:
+    """Per-window CC + compact ids: (N, H, W) uint8 -> int32 1-based
+    component ids in raster order of component roots, 0 on background.
+
+    The JAX split route at every size: K2 labels, a raster cumsum ranks the
+    roots, K3 spreads each root's rank over its component.  (The JAX
+    package sends windows of at most 512x512 to a fused kernel, K1, with the
+    same output; the port's K1 comes with the device-refine slice.)"""
+    return _split_ids(masks_u8, cc_windows_local, min_prop_windows_local)
+
+
+def cc_ids_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
+    """:func:`cc_ids_windows_local` through the plain versions of K2 and K3
+    on any device (the kernels' yardstick on the card)."""
+    return _split_ids(masks_u8, cc_windows_local_plain, min_prop_windows_local_plain)

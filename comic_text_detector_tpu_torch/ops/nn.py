@@ -1,0 +1,56 @@
+"""NCHW neural-net primitives of the port.
+
+Counterpart of the JAX package's ``ops/nn.py``.  There the primitives pin
+torch semantics onto NHWC ``lax`` calls; here they are torch's own, so this
+module keeps only what the blocks share: the padding rule, the activation
+table, nearest 2x upsampling and eval-mode BatchNorm as one multiply-add in
+the JAX package's arithmetic order.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def autopad(k: int, p: Optional[int] = None) -> int:
+    """'same' padding for odd kernels (reference models/yolov5/common.py:24)."""
+    return k // 2 if p is None else p
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "leaky": leaky_relu,
+    "relu": F.relu,
+    "identity": lambda x: x,
+}
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """torch.nn.Upsample(scale_factor=2, mode='nearest') on NCHW."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def avg_pool2d(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    return F.avg_pool2d(x, k, stride)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode BatchNorm computed as ``x * inv + (bias - mean * inv)`` with
+    ``inv = rsqrt(var + eps) * weight``: the JAX package's order of
+    operations (``ops/nn.py::batch_norm_inference``).  Parameter and buffer
+    names are torch's, so reference state dicts load unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        b = self.bias - self.running_mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]

@@ -1,0 +1,162 @@
+"""TextDetector — the end-to-end page -> (mask, mask_refined, blk_list) API.
+
+Counterpart of the JAX package's ``pipeline/detector.py::TextDetector`` in
+its default configuration: ``refine_backend="host"``, ``mask_transfer="grey"``,
+float32.  One device step runs upload, cv2-exact letterbox, the three-head
+net, NMS, the un-letterbox of the grey mask to page resolution (cv2-exact,
+the JAX package's ``_upsample_mask``) and the DB decode; the host then groups
+blocks and lines and refines the mask.
+
+Colour contract: the input is a BGR uint8 page and the net reads BGR/255.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from comic_text_detector_tpu_torch import constants as C
+from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
+from comic_text_detector_tpu_torch.models.detector import build_inference_model
+from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
+from comic_text_detector_tpu_torch.ops.nms import nms_single
+from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
+from comic_text_detector_tpu_torch.postproc.textblock import TextBlock, group_output
+from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
+from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.weights import load_npz, load_reference_pt, state_dict_from_jax
+
+
+def postprocess_yolo(rows: np.ndarray, count: int, resize_ratio):
+    """Fixed NMS rows -> (boxes int32, classes, confs) ragged triple
+    (reference inference.py:101-114)."""
+    det = np.asarray(rows)[:count].copy()
+    det[:, [0, 2]] *= resize_ratio[0]
+    det[:, [1, 3]] *= resize_ratio[1]
+    return det[:, 0:4].astype(np.int32), det[:, 5].astype(np.int32), np.round(det[:, 4], 3)
+
+
+class TextDetector:
+    """Comic/manga page text detector.
+
+    Usage::
+
+        det = TextDetector("data/flagship_r2.npz")      # or a reference .pt
+        mask, mask_refined, blk_list = det(img_bgr)     # uint8 BGR page
+
+    Runs on ``device="cuda"``; ``device="cpu"`` must be asked for.
+    """
+
+    lang_list = C.LANG_LIST
+    langcls2idx = C.LANGCLS2IDX
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        input_size: int = C.DEFAULT_INPUT_SIZE,
+        device: str = "cuda",
+        half: bool = False,
+        nms_thresh: float = C.DEFAULT_NMS_THRESH,
+        conf_thresh: float = C.DEFAULT_CONF_THRESH,
+        mask_thresh: float = C.DEFAULT_MASK_THRESH,
+        act: str = "leaky",
+        variables=None,
+        cfg: Optional[dict] = None,
+        refine_backend: str = "host",
+        mask_transfer: str = "grey",
+    ):
+        if half:
+            raise NotImplementedError("half=True (bf16) comes with the batch-stream slice of the port")
+        if refine_backend != "host":
+            raise NotImplementedError(
+                "refine_backend='device' comes with the device-refine slice of the port (kernel K1)"
+            )
+        if mask_transfer != "grey":
+            raise NotImplementedError(
+                "mask_transfer='packed' comes with the device-refine slice of the port"
+            )
+        self.device = resolve_device(device)
+        if isinstance(input_size, tuple):
+            input_size = input_size[0]
+        self.input_size = (input_size, input_size)
+        self.conf_thresh = conf_thresh
+        self.nms_thresh = nms_thresh
+        self.mask_thresh = mask_thresh
+        self.db_thresh = C.DEFAULT_DB_THRESH
+        self.box_thresh = C.DEFAULT_BOX_THRESH
+        self.unclip_ratio = C.DEFAULT_UNCLIP_RATIO
+
+        path = None if model_path is None else str(model_path)
+        if variables is not None:
+            model_cfg = cfg or YOLOV5S_CFG
+            state = state_dict_from_jax(variables, model_cfg)
+        elif path is None:
+            raise ValueError("provide model_path or variables")
+        elif path.endswith((".onnx", ".stablehlo")):
+            raise NotImplementedError(
+                f"{path}: .onnx and .stablehlo models come with the ingestion/export slice of the port"
+            )
+        elif path.endswith(".npz"):
+            model_cfg = cfg or YOLOV5S_CFG
+            state = state_dict_from_jax(load_npz(path), model_cfg)
+        else:
+            state, ckpt_cfg = load_reference_pt(path)
+            model_cfg = cfg or ckpt_cfg or YOLOV5S_CFG
+        self.model = build_inference_model(model_cfg, act=act)
+        self.model.load_state_dict(state, strict=True)
+        self.model.to(self.device)
+
+    @torch.no_grad()
+    def _device_step(self, img: np.ndarray):
+        """Upload -> letterbox -> net -> NMS, grey-mask un-letterbox and DB
+        decode; every output stays on the device."""
+        size = self.input_size[0]
+        im_h, im_w = img.shape[:2]
+        _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
+        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        lb = letterbox_device_u8(img_dev, size)
+        x = lb.permute(2, 0, 1)[None].to(torch.float32) / 255.0
+        # float32 convolutions: cuDNN would otherwise run them in TF32
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            blks, mask, lines = self.model(x)
+        rows, count = nms_single(blks[0].to(torch.float32), self.conf_thresh, self.nms_thresh)
+        mask_full = (mask[0, 0].to(torch.float32) * 255.0).to(torch.uint8)
+        mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
+        boxes, scores, valid = db_decode_full_device(lines[0, 0].to(torch.float32), self.db_thresh)
+        return rows, count, mask_page, boxes, scores, valid
+
+    def __call__(
+        self,
+        img: np.ndarray,
+        refine_mode: int = C.REFINEMASK_INPAINT,
+        keep_undetected_mask: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray, List[TextBlock]]:
+        im_h, im_w = img.shape[:2]
+        size = self.input_size[0]
+        _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
+        rows, count, mask, dboxes, dscores, dvalid = (
+            t.cpu().numpy() for t in self._device_step(img)
+        )
+
+        resize_ratio = (im_w / (size - dw), im_h / (size - dh))
+        blks = postprocess_yolo(rows, int(count), resize_ratio)
+
+        lines, scores = boxes_from_device_rects(dboxes, dscores, dvalid, size, size, size, size)
+        if len(scores):
+            keep = scores > self.box_thresh
+            lines, scores = lines[keep], scores[keep]
+        if lines.size == 0:
+            lines = []
+        else:
+            lines = lines.astype(np.float64)
+            lines[..., 0] *= resize_ratio[0]
+            lines[..., 1] *= resize_ratio[1]
+            lines = lines.astype(np.int32)
+
+        blk_list = group_output(blks, lines, im_w, im_h, mask)
+        mask_refined = refine_mask(img, mask, blk_list, refine_mode=refine_mode)
+        if keep_undetected_mask:
+            mask_refined = refine_undetected_mask(img, mask, mask_refined, blk_list, refine_mode=refine_mode)
+        return mask, mask_refined, blk_list
