@@ -8,15 +8,21 @@ before it starts so a stall shows where it stopped:
 1. the card's name and power limit, the torch and CUDA versions;
 2. build the CUDA kernels from ``comic_text_detector_tpu_torch/csrc`` (one
    nvcc per source, all started together), with the build time;
-3. hold each kernel (K2, K3) and the split ids route bit for bit against
-   its plain PyTorch version, small inputs first;
-4. the main path: ``TextDetector("data/flagship_r2.npz", input_size=1024)``
-   on seeded synthetic pages, with every kernel's launch count set to 0
-   just before and read just after; then the kernels against their plain
-   versions on the path's own 1024x1024 DB bitmap, their times, and the
-   page time;
+3. hold each kernel (K1, K2, K3) and the ids route bit for bit against
+   its plain PyTorch version, small inputs first; K1 at every refine
+   bucket shape with 4 x slots windows;
+4. the two paths, each on the same seeded synthetic pages with every
+   kernel's launch count set to 0 just before and read just after:
+   ``TextDetector("data/flagship_r2.npz", input_size=1024)`` (host refine,
+   K2 and K3 in the DB decode) and the same with
+   ``refine_backend="device", mask_transfer="packed"`` (K1 in the refine
+   too); then K2 and K3 against their plain versions on the path's own
+   1024x1024 DB bitmap, K1 on page 0's own candidate stack, their times,
+   the device refine alone, and ms/page of both configurations;
 5. the output check: the same page through the card and through the
-   port's CPU route (plain versions) at input size 512 must agree.
+   port's CPU route (plain versions) at input size 512 must agree, for
+   both refine backends, and the card's ``refine_page`` must be bit-equal
+   to the CPU's on the same page and grey mask.
 
 Prints ``{"kernels": [...]}`` on a line of its own, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -136,6 +142,7 @@ def main() -> None:
     phase(f"build time {time.perf_counter() - t0:.1f} s")
 
     phase("3/5 kernels vs plain versions, bit for bit")
+    from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
     blob[80:960, 120:900] = 1
@@ -171,7 +178,32 @@ def main() -> None:
     for name, m_np in cases:
         hold(name, m_np)
 
-    phase("4/5 main path: TextDetector at 1024, flagship_r2 weights")
+    def hold_k1(name: str, m: torch.Tensor) -> int:
+        """K1 vs its plain version on one (N, h, w) stack; returns the max
+        abs error (0, or it raises)."""
+        got, ref = K.cc_ids_fused(m), K.cc_ids_windows_local_plain(m)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"K1 differs from its plain version on {name}: {int((got != ref).sum())} pixels")
+        return err
+
+    for bh, bw, slots, _cap in R.BUCKETS:
+        glyph = (synthetic_page(rng, bh, bw, colour=False)[..., 0] < 128).astype(np.uint8)
+        serp = np.zeros((bh, bw), np.uint8)
+        side = min(bh, bw)
+        serp[:side, :side] = serpentine(side)
+        kinds = {
+            "glyph": glyph, "serpentine": serp, "noise 45%": (rng.random((bh, bw)) < 0.45).astype(np.uint8),
+            "all-zero": np.zeros((bh, bw), np.uint8), "all-one": np.ones((bh, bw), np.uint8),
+        }
+        for kind, win in kinds.items():
+            hold_k1(f"{kind} {4 * slots}x{bh}x{bw}", torch.from_numpy(np.repeat(win[None], 4 * slots, 0)).to(dev))
+        mixed = np.stack([list(kinds.values())[i % 5] for i in range(4 * slots)])
+        hold_k1(f"mixed {4 * slots}x{bh}x{bw}", torch.from_numpy(mixed).to(dev))
+        phase(f"  K1 bit-equal at {4 * slots}x{bh}x{bw}: glyph, serpentine, noise 45%, all-zero, all-one, mixed")
+
+    phase("4/5 main paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -197,6 +229,26 @@ def main() -> None:
             raise AssertionError(f"mask shapes {mask.shape} {refined.shape} for page {p.shape}")
         n_lines = sum(len(b.lines) for b in blks)
         phase(f"  page {p.shape}: {len(blks)} blocks, {n_lines} lines, mask>30 {(mask > 30).mean():.4f}")
+
+    phase("  device refine, packed masks")
+    det_dev = TextDetector(WEIGHTS, input_size=1024, refine_backend="device", mask_transfer="packed")
+    for kernel in (K.cc_windows_local, K.min_prop_windows_local, K.cc_ids_fused):
+        kernel.launches = 0
+    results_dev = [det_dev(p) for p in pages]
+    torch.cuda.synchronize()
+    launches_dev = {"K1": K.cc_ids_fused.launches, "K2": K.cc_windows_local.launches,
+                    "K3": K.min_prop_windows_local.launches}
+    phase(f"  launches on the device-refine path: {launches_dev}")
+    for kname, n in launches_dev.items():
+        if n <= 0:
+            raise AssertionError(f"{kname} was not launched on the device-refine path")
+    for p, (mask, refined, blks) in zip(pages, results_dev):
+        if mask.shape != p.shape[:2] or refined.shape != p.shape[:2] or mask.dtype != np.uint8:
+            raise AssertionError(f"mask shapes {mask.shape} {refined.shape} for page {p.shape}")
+        if not set(np.unique(mask)) <= {0, 255} or not set(np.unique(refined)) <= {0, 255}:
+            raise AssertionError("packed-mode masks are not 0/255")
+        phase(f"  page {p.shape}: {len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}, "
+              f"refined {(refined > 0).mean():.4f}")
 
     # the path's own DB bitmap
     with torch.no_grad():
@@ -228,18 +280,75 @@ def main() -> None:
     k2_bytes = px * 1 + px * 4  # mask in, labels out
     k3_bytes = px * 1 + px * 4 + px * 4  # mask + seeds in, ids out
 
-    for p in pages:  # warm-up done above; now timed
-        det(p)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reps = 2
-    for _ in range(reps):
-        for p in pages:
-            det(p)
-    torch.cuda.synchronize()
-    page_ms = (time.perf_counter() - t0) * 1e3 / (reps * len(pages))
+    # page 0's own candidate stack: the first dispatch of its device refine
+    from comic_text_detector_tpu_torch.utils.imgproc import expand_textwindow
+
+    *_, img0, mask0 = det_dev._device_step(pages[0])
+    blks0 = results_dev[0][2]
+    windows = np.asarray([expand_textwindow(pages[0].shape, b.xyxy, expand_r=16) for b in blks0]).reshape(-1, 4)
+    if not len(windows):
+        raise AssertionError("page 0 has no text block to refine")
+    buckets = [R._bucket_index(int(x2 - x1), int(y2 - y1)) for x1, y1, x2, y2 in windows]
+    bi = buckets[0]
+    bh, bw, slots, cap = R.BUCKETS[bi]
+    sel = [j for j, b in enumerate(buckets) if b == bi][:slots]
+    padded = np.zeros((slots, 4), np.int32)
+    padded[:, 2:] = 1
+    padded[: len(sel)] = windows[sel]
+    with torch.no_grad():
+        win_img, win_msk, in_win = R.extract_windows(img0, mask0, padded, None, (bh, bw))
+        cands, _ = R._candidates(win_img, win_msk, in_win)
+        stack = R._drop_tiny_components((cands > 0).reshape(4 * slots, bh, bw)).to(torch.uint8).contiguous()
+    k1_err = hold_k1(f"page 0 candidate stack {tuple(stack.shape)}", stack)
+    k1_out, k1_parent = torch.empty(stack.shape, dtype=torch.int32, device=dev), torch.empty(
+        stack.shape, dtype=torch.int32, device=dev)
+    k1_ms = cuda_ms(lambda: K.launch_cc_ids_window(stack, k1_parent, k1_out, err), 50)
+    if int(err.item()):
+        raise AssertionError("a union-find loop bound was hit while timing K1")
+    k1_plain = cuda_ms(lambda: K.cc_ids_windows_local_plain(stack), 5)
+    k1_bytes = stack.numel() * (1 + 4)  # mask in, ids out
+    phase(f"  K1 on page 0's candidates {tuple(stack.shape)} ({len(sel)} windows of bucket {bh}x{bw}): "
+          f"{k1_ms:.4f} ms, plain {k1_plain:.2f} ms, {int(k1_out.max())} max id")
+
+    def page_time(detector) -> float:
+        for p in pages:  # warm-up
+            detector(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps = 2
+        for _ in range(reps):
+            for p in pages:
+                detector(p)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (reps * len(pages))
+
+    page_ms = page_time(det)
+    page_ms_dev = page_time(det_dev)
     step_ms = cuda_ms(lambda: det._device_step(pages[0]), 5)
-    phase(f"  {page_ms:.1f} ms/page end to end, {step_ms:.1f} ms device step (page {pages[0].shape})")
+    refine_ms = cuda_ms(lambda: R.refine_page(img0, mask0, windows, 0), 5)
+    # each stage of that dispatch alone (the steps of ops/refine.py::_refine_windows)
+    with torch.no_grad():
+        pred = (R._erode_ellipse3(torch.where(in_win, win_msk, 255)) > 60) & in_win
+        fgs = stack.bool()
+        ids_all = R._component_ids(fgs)
+        merged = R._merge_labeled(torch.zeros_like(pred), fgs[:slots], ids_all[:slots], pred, cap=cap)
+        canvas0 = torch.zeros((1, img0.shape[0] + bh, img0.shape[1] + bw), dtype=torch.uint8, device=dev)
+        valid0 = np.arange(slots) < len(sel)
+        refine_stages = {
+            "extract": cuda_ms(lambda: R.extract_windows(img0, mask0, padded, None, (bh, bw)), 5),
+            "candidates": cuda_ms(lambda: R._candidates(win_img, win_msk, in_win), 5),
+            "drop_tiny": cuda_ms(lambda: R._drop_tiny_components((cands > 0).reshape(4 * slots, bh, bw)), 5),
+            "cc_ids_candidates": cuda_ms(lambda: R._component_ids(fgs), 5),
+            "merge_x4": cuda_ms(lambda: [R._merge_labeled(merged, fgs[:slots], ids_all[:slots], pred, cap=cap)
+                                         for _ in range(4)], 5),
+            "fill_holes": cuda_ms(lambda: R._fill_holes(merged, pred, in_win, cap=cap), 5),
+            "paste": cuda_ms(lambda: R.paste_windows_exact(canvas0, merged.to(torch.uint8) * 255, padded, valid0,
+                                                           np.zeros(slots, np.int64)), 5),
+        }
+    phase("  device refine dispatch by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in refine_stages.items()))
+    phase(f"  host refine {page_ms:.1f} ms/page, device refine + packed {page_ms_dev:.1f} ms/page end to end; "
+          f"{step_ms:.1f} ms device step, {refine_ms:.1f} ms device refine of page 0 "
+          f"({len(windows)} windows, page {pages[0].shape})")
 
     # each stage of the device step alone, on page 0's tensors
     img_dev = torch.from_numpy(pages[0]).to(dev)
@@ -258,7 +367,13 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/5 output check: card vs the port's CPU route at 512")
+    phase("5/5 output check: card vs the port's CPU route")
+    canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
+    canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
+    if not torch.equal(canvas_gpu, canvas_cpu):
+        raise AssertionError(f"refine_page differs between card and CPU on {int((canvas_gpu != canvas_cpu).sum())} px")
+    phase(f"  refine_page of page 0 bit-equal on card and CPU ({int(canvas_cpu.count_nonzero())} px set)")
+
     small = synthetic_page(np.random.default_rng(7), 560, 720, colour=False)
     det_gpu = TextDetector(WEIGHTS, input_size=512)
     det_cpu = TextDetector(WEIGHTS, input_size=512, device="cpu")
@@ -280,7 +395,24 @@ def main() -> None:
         raise AssertionError(f"refined mask IoU {iou:.4f} between card and CPU")
     phase(f"  card and CPU agree: {len(bg)} blocks, mask within {mdiff} level, refined IoU {iou:.4f}")
 
+    kw = dict(input_size=512, refine_backend="device")
+    mg, rg, bg = TextDetector(WEIGHTS, **kw)(small.copy())
+    mc, rc, bc = TextDetector(WEIGHTS, device="cpu", **kw)(small.copy())
+    if len(bg) != len(bc) or np.abs(mg.astype(np.int16) - mc).max() > 1:
+        raise AssertionError(f"device refine at 512: {len(bg)} vs {len(bc)} blocks or grey masks apart")
+    iou_dev = np.logical_and(rg > 0, rc > 0).sum() / max(np.logical_or(rg > 0, rc > 0).sum(), 1)
+    if iou_dev < 0.99:
+        raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
+    phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
+
     kernels = [
+        {
+            "name": "cc_ids_window (K1)", "route": "cuda",
+            "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
+            "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:335",
+            "launches": launches_dev["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+            "bound_ms": k1_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        },
         {
             "name": "cc_window (K2)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
@@ -296,8 +428,13 @@ def main() -> None:
             "bound_ms": k3_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
     ]
-    print(json.dumps({"page_ms": page_ms, "device_step_ms": step_ms, "stage_ms": stages, "db_components": n_comp,
-                      "pages": [list(p.shape) for p in pages], "card": smi}), flush=True)
+    print(json.dumps({"page_ms": page_ms, "page_ms_device_refine": page_ms_dev, "device_step_ms": step_ms,
+                      "device_refine_ms": refine_ms, "refine_windows": len(windows), "stage_ms": stages,
+                      "refine_dispatch_stage_ms": refine_stages,
+                      "db_components": n_comp, "k1_stack": list(stack.shape),
+                      "k1_launches_per_page": launches_dev["K1"] / len(pages),
+                      "launches_device_refine": launches_dev, "pages": [list(p.shape) for p in pages],
+                      "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

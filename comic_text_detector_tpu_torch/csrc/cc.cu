@@ -1,7 +1,12 @@
 // Connected-components kernels for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of comic_text_detector_tpu/ops/pallas_kernels.py:
+// Replaces three Pallas TPU kernels of comic_text_detector_tpu/ops/pallas_kernels.py:
 //
+//   K1 ctd_cc_ids_window  <- _cc_ids_kernel (the fused branch of cc_ids_windows_local)
+//      (N, H, W) uint8 mask, H*W <= 512*512 -> int32: every foreground pixel
+//      gets its 8-connected component's 1-based id, the rank of the
+//      component's root (its minimum window-local linear index) in raster
+//      order; background gets 0.
 //   K2 ctd_cc_window      <- _cc_window_kernel (cc_windows_local)
 //      (N, H, W) uint8 mask -> int32: every foreground pixel gets the
 //      minimum window-local linear index (row * W + col) of its
@@ -27,6 +32,20 @@
 // minimum linear index: exactly K2's output.  K3 runs the same three steps,
 // then an atomicMin of each seed into its root's slot, then a gather.
 //
+// K1 runs the same three steps, then ranks the roots and gathers.  The
+// Pallas kernel ranks with Hillis-Steele shifts over the VMEM-resident
+// window and spreads the ranks with a second fixpoint; here a 256x256 int32
+// window (256 KB) already exceeds a block's shared memory, so:
+//   rank    one 1024-thread block per window; each thread counts the roots
+//           of a contiguous run of the window, a block-wide scan in shared
+//           memory turns the counts into offsets, and each thread writes
+//           1 + (roots before it) at each root of its run;
+//   gather  ids[p] = rank[parent[p]]: after the flatten every pixel already
+//           holds its root, so no second fixpoint is needed.
+// The ranks live in the output array itself, at the roots' slots (as K3's
+// minima do), so the only scratch is the parent array: at most
+// 12 x 512 x 512 x 4 B = 12.6 MB for a refine dispatch, inside the 50 MB L2.
+//
 // Termination.  A non-root always points to a strictly smaller index, so a
 // find walks at most H*W links.  Each retry of a union strictly lowers one
 // of its two operands, so a union retries at most 2*H*W times.  Both loops
@@ -34,8 +53,9 @@
 // corrupted) sets *err and the Python wrapper raises.
 //
 // Cost.  At the main path's 1024x1024 window, K2 moves about 5 MB (1 MB of
-// mask in, 4 MB of labels out) and K3 about 9 MB (mask + seeds in, ids out):
-// both are bound by memory bandwidth, not arithmetic.  This first version
+// mask in, 4 MB of labels out) and K3 about 9 MB (mask + seeds in, ids out);
+// K1 moves 5 bytes a pixel (mask in, ids out), 10.5 MB for 32 windows of
+// 256x256: all three are bound by memory bandwidth, not arithmetic.  This first version
 // is simple rather than fast: parent links live in device memory and are
 // read through L2 (__ldcg), not in shared memory.
 
@@ -47,6 +67,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRankThreads = 1024;  // 32 warps: one warp scans the warp totals
 
 __device__ __forceinline__ int load_link(const int* p) { return __ldcg(p); }
 
@@ -147,6 +168,44 @@ __global__ void gather_kernel(const uint8_t* __restrict__ mask, const int* __res
     out[i] = out[base + parent[i]];
 }
 
+// One block per window.  parent holds each pixel's root after the flatten
+// (2**30 on background), so a pixel is a root iff parent[p] == p.  Writes
+// the 1-based raster rank at each root's slot of out; other slots are left
+// as they are.
+__global__ void __launch_bounds__(kRankThreads)
+rank_roots_kernel(const int* __restrict__ parent, int* __restrict__ out, int hw) {
+    __shared__ int warp_total[kRankThreads / 32];
+    long long base = (long long)blockIdx.x * hw;
+    const int* par = parent + base;
+    int* o = out + base;
+    int run = (hw + kRankThreads - 1) / kRankThreads;
+    int lo = min((int)threadIdx.x * run, hw);
+    int hi = min(lo + run, hw);
+    int count = 0;
+    for (int p = lo; p < hi; ++p) count += par[p] == p;
+
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = count;
+    for (int d = 1; d < 32; d <<= 1) {
+        int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_total[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int t = warp_total[lane];
+        for (int d = 1; d < 32; d <<= 1) {
+            int v = __shfl_up_sync(0xffffffffu, t, d);
+            if (lane >= d) t += v;
+        }
+        warp_total[lane] = t;
+    }
+    __syncthreads();
+    int rank = incl - count + (warp > 0 ? warp_total[warp - 1] : 0);
+    for (int p = lo; p < hi; ++p)
+        if (par[p] == p) o[p] = ++rank;
+}
+
 inline unsigned int blocks_for(long long total) {
     return (unsigned int)((total + kThreads - 1) / kThreads);
 }
@@ -177,6 +236,20 @@ int ctd_min_prop_window(const uint8_t* mask, const int32_t* seeds, int32_t* pare
     merge_kernel<<<g, kThreads, 0, stream>>>(mask, parent, total, h, w, err);
     flatten_kernel<<<g, kThreads, 0, stream>>>(mask, parent, total, h * w, err);
     seed_min_kernel<<<g, kThreads, 0, stream>>>(mask, parent, seeds, out, total, h * w);
+    gather_kernel<<<g, kThreads, 0, stream>>>(mask, parent, out, total, h * w);
+    return (int)cudaGetLastError();
+}
+
+// K1.  parent is int32 scratch of the same shape.  Returns cudaGetLastError().
+int ctd_cc_ids_window(const uint8_t* mask, int32_t* parent, int32_t* out, int32_t* err, int n, int h,
+                      int w, cudaStream_t stream) {
+    long long total = (long long)n * h * w;
+    if (total == 0) return (int)cudaGetLastError();
+    unsigned int g = blocks_for(total);
+    init_kernel<<<g, kThreads, 0, stream>>>(mask, parent, out, 0, total, h * w);
+    merge_kernel<<<g, kThreads, 0, stream>>>(mask, parent, total, h, w, err);
+    flatten_kernel<<<g, kThreads, 0, stream>>>(mask, parent, total, h * w, err);
+    rank_roots_kernel<<<n, kRankThreads, 0, stream>>>(parent, out, h * w);
     gather_kernel<<<g, kThreads, 0, stream>>>(mask, parent, out, total, h * w);
     return (int)cudaGetLastError();
 }

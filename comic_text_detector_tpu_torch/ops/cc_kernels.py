@@ -1,19 +1,25 @@
-"""Connected-components kernels K2 and K3 and the split ids route.
+"""Connected-components kernels K1, K2 and K3, and the ids route.
 
-The JAX package labels the DB decode's 1024x1024 bitmap with two Pallas
-kernels (``comic_text_detector_tpu/ops/pallas_kernels.py``):
+The JAX package labels connected components with three Pallas kernels
+(``comic_text_detector_tpu/ops/pallas_kernels.py``):
 
+* K1 ``_cc_ids_kernel``, the fused branch of ``cc_ids_windows_local``:
+  each foreground pixel gets its 8-connected component's 1-based id, the
+  raster rank of the component's root (minimum window-local linear index);
+  background gets 0.  It serves windows of at most 512x512, the device
+  refine's candidate and hole masks.
 * K2 ``_cc_window_kernel`` via ``cc_windows_local``: each foreground pixel
-  gets its 8-connected component's minimum window-local linear index;
-  background gets 2**30.
+  gets its component's minimum window-local linear index; background gets
+  2**30.
 * K3 ``_min_prop_kernel`` via ``min_prop_windows_local``: each foreground
   pixel gets the minimum seed over its component; background gets 0.
 
-``cc_ids_windows_local`` chains them as the JAX split route does: K2, a
-cumsum of the roots in raster order, K3.  Its output is 1-based component
-ids in raster order of each component's root, 0 on background.
+``cc_ids_windows_local`` routes as the JAX function does: windows of at most
+512x512 go to K1; larger ones (the DB decode's 1024x1024 bitmap) take the
+split route, K2, a cumsum of the roots in raster order, K3; above 1024x1024
+it raises.  Both routes give the same ids.
 
-Here both kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
+All three kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
 plain-C shared library on first use and bound with ``ctypes``.  Each wrapper
 launches its kernel for a CUDA tensor, uses the plain PyTorch version beside
 it for a CPU tensor, and counts its launches in ``<wrapper>.launches``.
@@ -33,6 +39,8 @@ import torch
 
 CC_BIG = 2**30
 _INT32_MAX = 2**31 - 1
+FUSED_IDS_MAX_ELEMS = 512 * 512  # K1's largest window (pallas_kernels.py:389)
+IDS_MAX_ELEMS = 1024 * 1024  # the split route's largest window (pallas_kernels.py:465)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "cc.cu")
@@ -92,6 +100,8 @@ def _lib() -> ctypes.CDLL:
     lib.ctd_cc_window.restype = i
     lib.ctd_min_prop_window.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.ctd_min_prop_window.restype = i
+    lib.ctd_cc_ids_window.argtypes = [p, p, p, p, i, i, i, p]
+    lib.ctd_cc_ids_window.restype = i
     lib.ctd_error_string.argtypes = [i]
     lib.ctd_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,6 +176,21 @@ def min_prop_windows_local_plain(masks_u8: torch.Tensor, seeds_i32: torch.Tensor
     return out.view(masks_u8.shape).to(torch.int32)
 
 
+def cc_ids_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 and of the whole ids contract, on any device:
+    (N, H, W) uint8 -> int32 1-based component ids in raster order of the
+    component roots, 0 on background."""
+    n, h, w = masks_u8.shape
+    fg = masks_u8 != 0
+    root = _root_index_plain(fg).view(n, h * w)
+    local = root - (torch.arange(n, device=fg.device) * (h * w)).view(n, 1)
+    fg = fg.view(n, h * w)
+    is_root = fg & (local == torch.arange(h * w, device=fg.device))
+    rank = torch.cumsum(is_root, dim=1, dtype=torch.int32)
+    ids = torch.where(fg, rank.gather(1, local), 0)
+    return ids.view(n, h, w).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -195,6 +220,19 @@ def launch_min_prop_window(masks_u8: torch.Tensor, seeds_i32: torch.Tensor, pare
     )
     if rc != 0:
         raise RuntimeError(f"min_prop_windows_local: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
+
+
+def launch_cc_ids_window(masks_u8: torch.Tensor, parent: torch.Tensor, out: torch.Tensor,
+                         err: torch.Tensor) -> None:
+    """Enqueue K1 on the current stream (no count, no sync); raises if the
+    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    n, h, w = masks_u8.shape
+    lib = _lib()
+    stream = torch.cuda.current_stream(masks_u8.device).cuda_stream
+    rc = lib.ctd_cc_ids_window(masks_u8.data_ptr(), parent.data_ptr(), out.data_ptr(), err.data_ptr(),
+                               n, h, w, stream)
+    if rc != 0:
+        raise RuntimeError(f"cc_ids_fused: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
 
 
 def _raise_on_bound(err: torch.Tensor, name: str) -> None:
@@ -236,8 +274,28 @@ def min_prop_windows_local(masks_u8: torch.Tensor, seeds_i32: torch.Tensor) -> t
     return out
 
 
+def cc_ids_fused(masks_u8: torch.Tensor) -> torch.Tensor:
+    """K1: per-window CC + compact ids of (N, H, W) uint8 masks with
+    H*W <= 512*512 -> int32 1-based component ids in raster order of the
+    component roots, 0 on background."""
+    _check_windows(masks_u8, torch.uint8, "cc_ids_fused")
+    if masks_u8.shape[1] * masks_u8.shape[2] > FUSED_IDS_MAX_ELEMS:
+        raise ValueError(f"cc_ids_fused: window {tuple(masks_u8.shape[1:])} exceeds 512*512 elements")
+    if masks_u8.device.type == "cpu":
+        return cc_ids_windows_local_plain(masks_u8)
+    masks_u8 = masks_u8.contiguous()
+    parent = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    out = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    err = torch.zeros(1, dtype=torch.int32, device=masks_u8.device)
+    launch_cc_ids_window(masks_u8, parent, out, err)
+    cc_ids_fused.launches += 1
+    _raise_on_bound(err, "cc_ids_fused")
+    return out
+
+
 cc_windows_local.launches = 0
 min_prop_windows_local.launches = 0
+cc_ids_fused.launches = 0
 
 
 def _split_ids(masks_u8: torch.Tensor, labels_fn, prop_fn) -> torch.Tensor:
@@ -254,14 +312,15 @@ def cc_ids_windows_local(masks_u8: torch.Tensor) -> torch.Tensor:
     """Per-window CC + compact ids: (N, H, W) uint8 -> int32 1-based
     component ids in raster order of component roots, 0 on background.
 
-    The JAX split route at every size: K2 labels, a raster cumsum ranks the
-    roots, K3 spreads each root's rank over its component.  (The JAX
-    package sends windows of at most 512x512 to a fused kernel, K1, with the
-    same output; the port's K1 comes with the device-refine slice.)"""
+    Windows of at most 512x512 go to K1; larger ones take the split route:
+    K2 labels, a raster cumsum ranks the roots, K3 spreads each root's rank
+    over its component.  Above 1024x1024 it raises, as the JAX function
+    does."""
+    _check_windows(masks_u8, torch.uint8, "cc_ids_windows_local")
+    hw = masks_u8.shape[1] * masks_u8.shape[2]
+    if hw > IDS_MAX_ELEMS:
+        raise ValueError(f"cc_ids_windows_local: window {tuple(masks_u8.shape[1:])} exceeds 1024*1024 elements")
+    if hw <= FUSED_IDS_MAX_ELEMS:
+        return cc_ids_fused(masks_u8)
     return _split_ids(masks_u8, cc_windows_local, min_prop_windows_local)
 
-
-def cc_ids_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
-    """:func:`cc_ids_windows_local` through the plain versions of K2 and K3
-    on any device (the kernels' yardstick on the card)."""
-    return _split_ids(masks_u8, cc_windows_local_plain, min_prop_windows_local_plain)

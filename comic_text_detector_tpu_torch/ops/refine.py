@@ -1,0 +1,706 @@
+"""Device mask refinement: the JAX package's ``ops/refine.py`` in PyTorch.
+
+The reference refits a colour model per text block on the host
+(``postproc/textmask.py``): grey-histogram bands and per-channel Otsu
+candidate masks, a merge of the candidates' connected components that
+reduces the byte-XOR distance to the predicted mask, then hole filling.
+This module runs all of a page's block windows in batched dispatches at
+the original page resolution:
+
+* windows go to the smallest shape bucket (``BUCKETS``) that holds them and
+  are copied 1:1, so the per-window pipeline is bit-exact against the host
+  merge; only windows larger than every bucket are resampled (bilinear)
+  into the last bucket;
+* histograms are 256-level counts (scatter-adds of 0/1 weights), rebinned
+  to ``np.histogram``'s 255 data-range bins;
+* connected components of all 4*K candidates, and of the K inverted
+  merges, are labelled by ``ops/cc_kernels.py::cc_ids_windows_local``
+  (kernel K1 on the card);
+* per-component sums are scatter-adds, accepted components a gather;
+* candidates are merged in stable XOR-score order; within one candidate the
+  accept tests commute (components are disjoint), so they run in parallel.
+
+Bit-equality with the JAX package on the CPU rests on doing each float32
+operation as XLA's CPU backend does it: XLA contracts ``a * b + c`` into a
+fused multiply-add (one rounding), which :func:`_fma` reproduces exactly,
+and it sums the Otsu cumsum in blocks of 16 (:func:`_cumsum_f32`).  The
+same code runs on the card, so the card's result is the CPU's.
+
+Window boxes stay on the host (NumPy) for grouping, slicing and sampling
+coordinates, so no value is read back from the device per window.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from comic_text_detector_tpu_torch.constants import REFINEMASK_INPAINT
+from comic_text_detector_tpu_torch.ops.cc_kernels import cc_ids_windows_local
+
+S = 256  # the smallest bucket's side
+CAP = 2048  # default per-window component capacity
+
+# (win_h, win_w, slots_per_dispatch, component_capacity), smallest first.
+# Component ids >= capacity are never accepted, so the caps change outputs
+# and are kept as the JAX package audited them.
+BUCKETS = (
+    (256, 256, 8, 1024),
+    (256, 512, 6, 2048),
+    (512, 256, 6, 2048),
+    (256, 640, 4, 8192),
+    (640, 256, 4, 8192),
+    (512, 512, 3, 4096),  # also the resample fallback
+)
+
+# CTD_REFINE_CAPS overrides the caps: a preset name or a comma list in
+# BUCKETS order, each a positive multiple of 64.  Malformed values raise.
+_CAP_PRESETS = {
+    # (256x256, 256x512, 512x256, 256x640, 640x256, 512x512)
+    "audit": (1024, 2048, 2048, 8192, 8192, 4096),
+    "r4": (2048, 8192, 8192, 8192, 8192, 8192),
+}
+
+
+def _parse_caps(spec: str, n: int):
+    """Parse a CTD_REFINE_CAPS value: preset name or comma list of n caps,
+    each a positive multiple of 64.  Raises on anything else."""
+    caps = _CAP_PRESETS.get(spec)
+    if caps is None:
+        try:
+            caps = tuple(int(v) for v in spec.split(","))
+        except ValueError:
+            caps = ()
+    if len(caps) != n or any(c <= 0 or c % 64 for c in caps):
+        raise ValueError(
+            f"CTD_REFINE_CAPS={spec!r}: need {n} positive multiples of 64 "
+            f"(or a preset in {sorted(_CAP_PRESETS)})"
+        )
+    return caps
+
+
+_caps_env = os.environ.get("CTD_REFINE_CAPS", "")
+if _caps_env:
+    _caps = _parse_caps(_caps_env, len(BUCKETS))
+    BUCKETS = tuple((h, w, s, c) for (h, w, s, _), c in zip(BUCKETS, _caps))
+
+
+# ---------------------------------------------------------------------------
+# float32 arithmetic as XLA's CPU backend does it
+# ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with a single rounding.
+
+    The product of two float32 values is exact in float64; the float64 sum
+    is rounded to odd (the TwoSum error says whether it was inexact), and a
+    round-to-odd value of 53 bits rounds to float32 exactly as the exact sum
+    would."""
+    a, b, c = (torch.as_tensor(v, dtype=torch.float32).double() for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 cumsum over the last axis of length 256, summed in XLA's CPU
+    order: sequential sums within blocks of 16, plus the sequential sum of
+    the blocks before."""
+    *lead, n = x.shape
+    if n != 256:
+        raise ValueError(f"_cumsum_f32 takes 256 columns, got {n}")
+    blocks = x.reshape(*lead, 16, 16)
+    cols = [blocks[..., 0]]
+    for j in range(1, 16):
+        cols.append(cols[-1] + blocks[..., j])
+    within = torch.stack(cols, dim=-1)
+    totals = within[..., 15]
+    offs = [torch.zeros_like(totals[..., 0])]
+    for b in range(1, 16):
+        offs.append(offs[-1] + totals[..., b - 1])
+    return (within + torch.stack(offs, dim=-1)[..., None]).reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# Window extraction / paste-back
+# ---------------------------------------------------------------------------
+
+
+def _to(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _ext_hi(b: np.ndarray, win_hw):
+    """Source extents (x_hi, y_hi): a window no larger than its bucket is
+    copied 1:1 and zero-padded; only a larger one is resampled."""
+    sh, sw = win_hw
+    return np.maximum(b[..., 2], b[..., 0] + sw), np.maximum(b[..., 3], b[..., 1] + sh)
+
+
+def _sample_coords(lo: np.ndarray, hi: np.ndarray, n_src: int, n_dst: int):
+    """2-tap bilinear sampling grid for [lo, hi) -> n_dst samples (cv2
+    INTER_LINEAR grid convention), for (K,) int32 extents: (i0, i1, frac),
+    each (K, n_dst), in float32 NumPy arithmetic."""
+    f32 = np.float32
+    lo = np.asarray(lo, np.int32)[:, None]
+    hi = np.asarray(hi, np.int32)[:, None]
+    span = (hi - lo).astype(f32)
+    d = np.arange(n_dst, dtype=f32)[None, :]
+    src = lo.astype(f32) + (d + f32(0.5)) * span / f32(n_dst) - f32(0.5)
+    src = np.clip(src, lo.astype(f32), (hi - 1).astype(f32)).astype(f32)
+    i0f = np.floor(src)
+    frac = src - i0f
+    i0 = np.clip(i0f, 0, n_src - 1).astype(np.int32)
+    i1 = np.clip(i0f + f32(1.0), 0, n_src - 1).astype(np.int32)
+    # i0 + 1 can equal hi after the hi - 1 clamp; its weight is 0 there
+    frac = np.where(i1.astype(f32) <= i0f, f32(0.0), frac).astype(f32)
+    return i0, i1, frac
+
+
+def _in_window(boxes: np.ndarray, win_hw) -> np.ndarray:
+    """(K, sh, sw) bool: the window pixels that lie inside the true box."""
+    sh, sw = win_hw
+    b = boxes.astype(np.int64)
+    dy, dx = np.arange(sh), np.arange(sw)
+    vy = (b[:, 1:2] + dy < b[:, 3:4]) | (b[:, 3:4] - b[:, 1:2] > sh)
+    vx = (b[:, 0:1] + dx < b[:, 2:3]) | (b[:, 2:3] - b[:, 0:1] > sw)
+    return vy[:, :, None] & vx[:, None, :]
+
+
+def extract_windows(
+    img: torch.Tensor,
+    mask: torch.Tensor,
+    boxes: np.ndarray,
+    page_ids: np.ndarray | None = None,
+    win_hw: Tuple[int, int] = (S, S),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Extract K boxes of (img, mask) into fixed (K, sh, sw[, 3]) uint8 windows.
+
+    img (H, W, 3) or (P, H, W, 3) uint8 BGR, mask (H, W) or (P, H, W) uint8,
+    boxes (K, 4) int xyxy on the host, page_ids (K,) into the page stack
+    (None: one page).  Returns (window images, window masks, in-window
+    validity (K, sh, sw) bool); pixels outside the true box are 0.
+
+    A window that fits the bucket is a 1:1 copy (clamped source indices);
+    a larger one is sampled bilinearly from its 2x2 source taps."""
+    sh, sw = win_hw
+    if mask.dim() == 2:
+        img, mask = img[None], mask[None]
+    _, h, w = mask.shape
+    dev = mask.device
+    boxes = np.asarray(boxes, np.int32).reshape(-1, 4)
+    k = boxes.shape[0]
+    pids = np.zeros((k,), np.int64) if page_ids is None else np.asarray(page_ids, np.int64)
+    x_hi, y_hi = _ext_hi(boxes, win_hw)
+    y0, y1, fy = _sample_coords(boxes[:, 1], y_hi, h, sh)
+    x0, x1, fx = _sample_coords(boxes[:, 0], x_hi, w, sw)
+    in_window = _to(_in_window(boxes, win_hw), dev)
+    p = _to(pids, dev).view(k, 1, 1)
+
+    def taps(rows, cols):  # (K, sh, sw, 4) uint8: B, G, R, mask
+        return torch.cat([img[p, rows, cols], mask[p, rows, cols][..., None]], dim=-1)
+
+    rows0, cols0 = _to(y0, dev).long().view(k, sh, 1), _to(x0, dev).long().view(k, 1, sw)
+    if not (fy.any() or fx.any()):
+        out = taps(rows0, cols0)
+    else:
+        rows1, cols1 = _to(y1, dev).long().view(k, sh, 1), _to(x1, dev).long().view(k, 1, sw)
+        fy_t, fx_t = _to(fy, dev).view(k, sh, 1, 1), _to(fx, dev).view(k, 1, sw, 1)
+        # rows first (at both column taps), then columns, as the JAX package blends
+        at_x0 = _fma(taps(rows0, cols0).float(), 1.0 - fy_t, taps(rows1, cols0).float() * fy_t)
+        at_x1 = _fma(taps(rows0, cols1).float(), 1.0 - fy_t, taps(rows1, cols1).float() * fy_t)
+        out = _fma(at_x0, 1.0 - fx_t, at_x1 * fx_t)
+        out = out.round().clamp(0, 255).to(torch.uint8)
+    out = torch.where(in_window[..., None], out, 0)
+    return out[..., :3], out[..., 3], in_window
+
+
+def _clamped_start(v: int, limit: int) -> int:
+    return min(max(int(v), 0), limit)
+
+
+def paste_windows_exact(
+    canvas: torch.Tensor, merged: torch.Tensor, boxes: np.ndarray, valid: np.ndarray, page_ids: np.ndarray,
+) -> None:
+    """OR 1:1-extracted (K, sh, sw) uint8 window masks into ``canvas`` in
+    place, at their box positions.  ``canvas`` is (P, H + sh, W + sw): the
+    padding keeps every start inside it.  ``merged`` is already zero outside
+    each window's true box, so nothing outside the box changes."""
+    _, hp, wp = canvas.shape
+    _, sh, sw = merged.shape
+    for i in np.flatnonzero(valid):
+        y = _clamped_start(boxes[i, 1], hp - sh)
+        x = _clamped_start(boxes[i, 0], wp - sw)
+        region = canvas[int(page_ids[i]), y:y + sh, x:x + sw]
+        region |= merged[i]
+
+
+def paste_windows(
+    canvas: torch.Tensor, merged: torch.Tensor, boxes: np.ndarray, valid: np.ndarray, page_ids: np.ndarray,
+    out_hw,
+) -> None:
+    """OR (K, sh, sw) uint8 0/255 window masks into ``canvas`` in place,
+    resampling each window back to its box (bilinear, > 127).  Only the
+    box's own pixels can be set, so only they are computed."""
+    h, w = out_hw
+    _, sh, sw = merged.shape
+    dev = canvas.device
+    x_his, y_his = _ext_hi(boxes, (sh, sw))
+    f32 = np.float32
+    for i in np.flatnonzero(valid):
+        b = boxes[i].astype(np.int64)
+        ry0, ry1 = max(b[1], 0), min(b[3], h)
+        rx0, rx1 = max(b[0], 0), min(b[2], w)
+        if ry1 <= ry0 or rx1 <= rx0:
+            continue
+        span_y = np.maximum(f32(y_his[i] - b[1]), f32(1.0))
+        span_x = np.maximum(f32(x_his[i] - b[0]), f32(1.0))
+        yy = (np.arange(ry0, ry1, dtype=f32) - f32(b[1]) + f32(0.5)) * f32(sh) / span_y - f32(0.5)
+        xx = (np.arange(rx0, rx1, dtype=f32) - f32(b[0]) + f32(0.5)) * f32(sw) / span_x - f32(0.5)
+        yy = np.clip(yy, f32(0.0), f32(sh - 1.0))
+        xx = np.clip(xx, f32(0.0), f32(sw - 1.0))
+        y0, x0 = np.floor(yy), np.floor(xx)
+        fy, fx = (yy - y0).astype(f32), (xx - x0).astype(f32)
+        y0i, x0i = y0.astype(np.int64), x0.astype(np.int64)
+        y1i, x1i = np.minimum(y0i + 1, sh - 1), np.minimum(x0i + 1, sw - 1)
+        mk = merged[i].float()
+        r0, r1 = mk[_to(y0i, dev)], mk[_to(y1i, dev)]
+        c0, c1 = _to(x0i, dev), _to(x1i, dev)
+        fx_t, fy_t = _to(fx, dev)[None, :], _to(fy, dev)[:, None]
+        top = _fma(r0[:, c0], 1 - fx_t, r0[:, c1] * fx_t)
+        bot = _fma(r1[:, c0], 1 - fx_t, r1[:, c1] * fx_t)
+        v = _fma(top, 1 - fy_t, bot * fy_t)
+        region = canvas[int(page_ids[i]), ry0:ry1, rx0:rx1]
+        region |= (v > 127.0).to(torch.uint8) * 255
+
+
+# ---------------------------------------------------------------------------
+# Histograms / thresholds
+# ---------------------------------------------------------------------------
+
+
+def _hist256(plane: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """(K, N) uint8 values + (K, N) 0/1 weights -> (K, 256) float32 counts
+    (integer sums, exact in any order)."""
+    out = torch.zeros((plane.shape[0], 256), dtype=torch.float32, device=plane.device)
+    return out.scatter_add_(1, plane.long(), weight.float())
+
+
+def bgr2gray_u8(img: torch.Tensor) -> torch.Tensor:
+    """cv2 BGR->GRAY (rounded uint8), in XLA's fused order."""
+    b, g, r = (img[..., i].float() for i in range(3))
+    grey = _fma(r, 0.299, _fma(b, 0.114, g * np.float32(0.587)))
+    return grey.round().clamp(0, 255).to(torch.uint8)
+
+
+def _otsu_from_hist(hist: torch.Tensor) -> torch.Tensor:
+    """(K, 256) counts -> (K,) Otsu thresholds (maximise the between-class
+    variance; the first maximum wins)."""
+    total = hist.sum(dim=1, keepdim=True)
+    idx = torch.arange(256, dtype=torch.float32, device=hist.device)
+    w0 = _cumsum_f32(hist)
+    w1 = total - w0
+    s0 = _cumsum_f32(hist * idx)
+    mu = s0[:, -1:]
+    m0 = torch.where(w0 > 0, s0 / w0.clamp_min(1), 0.0)
+    m1 = torch.where(w1 > 0, (mu - s0) / w1.clamp_min(1), 0.0)
+    d = m0 - m1
+    between = w0 * w1 * (d * d)
+    return torch.argmax(between, dim=1)
+
+
+_XOR_INVALID = 2**30  # above any real score (at most 255 * 640 * 256)
+
+
+def _xor_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Byte-XOR objective over the trailing 2 axes (reference textmask.py:36)."""
+    return torch.bitwise_xor(a, b).to(torch.int32).sum(dim=(-2, -1), dtype=torch.int32)
+
+
+def _pick_polarity(threshed: torch.Tensor, mask: torch.Tensor, in_window: torch.Tensor):
+    """minxor_thresh: keep the polarity closer to the predicted mask, with
+    pixels outside the true window excluded from both."""
+    threshed = torch.where(in_window, threshed, 0)
+    neg = torch.where(in_window, 255 - threshed, 0)
+    x_pos = _xor_sum(threshed, mask)
+    x_neg = _xor_sum(neg, mask)
+    take_neg = x_neg < x_pos
+    out = torch.where(take_neg[:, None, None], neg, threshed)
+    return out, torch.minimum(x_pos, x_neg)
+
+
+def _topk_colors(counts255: torch.Tensor, edges_lo: torch.Tensor, edges_step: torch.Tensor):
+    """Reference get_topk_color (textmask.py:16-27) over windows.
+
+    counts255 (K, 255) -> (K, 3) band-centre colours (1e9 where unused) and
+    (K,) counts of valid colours.  Bins are visited in stable descending
+    count order.  The JAX package walks bins 1..254 keeping a colour when it
+    lies more than 10 from every kept one, and stops after a bin whose count
+    is under the tolerance or once three are kept; the first bin i that
+    passes the distance test is the second colour and the next one past it
+    that also clears the second colour is the third, so both are found by
+    first-index searches."""
+    k, nb = counts255.shape
+    dev = counts255.device
+    sorted_counts, order = torch.sort(counts255, dim=1, descending=True, stable=True)
+    colors = _fma(order.float(), edges_step[:, None], edges_lo[:, None])
+    tol = counts255.sum(dim=1) * np.float32(0.001)
+    pos = torch.arange(nb, device=dev)
+    # bin i may add only if no bin 1..i-1 fell under the tolerance
+    under = (sorted_counts < tol[:, None]) & (pos >= 1)
+    under_before = (torch.cumsum(under.int(), dim=1) - under.int()) > 0
+    open_ = (pos >= 1) & ~under_before
+
+    def first(cond):
+        hit = cond.any(dim=1)
+        i = torch.argmax(cond.int(), dim=1)
+        return hit, i
+
+    c0 = colors[:, 0]
+    far0 = (colors - c0[:, None]).abs() > 10.0
+    has2, i2 = first(open_ & far0)
+    c2 = colors.gather(1, i2[:, None])[:, 0]
+    far2 = (colors - c2[:, None]).abs() > 10.0
+    has3, i3 = first(open_ & far0 & far2 & (pos[None, :] > i2[:, None]) & has2[:, None])
+    c3 = colors.gather(1, i3[:, None])[:, 0]
+    unused = torch.full_like(c0, 1e9)
+    sel = torch.stack([c0, torch.where(has2, c2, unused), torch.where(has3, c3, unused)], dim=1)
+    n = 1 + has2.int() + has3.int()
+    return sel, n
+
+
+# ---------------------------------------------------------------------------
+# Connected components + per-component sums
+# ---------------------------------------------------------------------------
+
+
+def _component_ids(fg: torch.Tensor) -> torch.Tensor:
+    """fg (K, sh, sw) bool -> 1-based component ids in raster order of the
+    component roots, 0 on background (kernel K1 on the card)."""
+    return cc_ids_windows_local(fg.to(torch.uint8).contiguous())
+
+
+def _component_sums(ids: torch.Tensor, quantities: torch.Tensor, cap: int = CAP) -> torch.Tensor:
+    """Per-component sums of (Q, K, sh, sw) float32 quantities in {-1, 0, 1}
+    over ids (K, sh, sw) -> (Q, K, cap).  Ids >= cap count as 0 (background),
+    so components beyond the capacity are never accepted.  The sums are
+    integers below 2**24, exact in any order of float32 atomics."""
+    q, k = quantities.shape[0], ids.shape[0]
+    flat = torch.where(ids < cap, ids, 0).reshape(k, -1).long()
+    gid = (torch.arange(k, device=ids.device)[:, None] * cap + flat).reshape(-1)
+    vals = quantities.reshape(q, -1).T
+    out = torch.zeros((k * cap, q), dtype=torch.float32, device=ids.device)
+    out.index_add_(0, gid, vals)
+    return out.reshape(k, cap, q).permute(2, 0, 1)
+
+
+def _take_accept(ids: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
+    """(K, cap) per-component accept bits -> (K, sh, sw) pixel mask; slot 0
+    (background and ids beyond the capacity) is never accepted."""
+    k, cap = accept.shape
+    acc = accept.clone()
+    acc[:, 0] = False
+    flat = torch.where(ids < cap, ids, 0).reshape(k, -1).long()
+    return acc.gather(1, flat).reshape(ids.shape)
+
+
+def _shifted(p: torch.Tensor, dy: int, dx: int, h: int, w: int) -> torch.Tensor:
+    return p[:, dy:dy + h, dx:dx + w]
+
+
+def _count_neighbors(fg: torch.Tensor, offsets) -> torch.Tensor:
+    _, h, w = fg.shape
+    p = F.pad(fg.to(torch.int32), (1, 1, 1, 1))
+    acc = torch.zeros(fg.shape, dtype=torch.int32, device=fg.device)
+    for dy, dx in offsets:
+        acc = acc + _shifted(p, dy, dx, h, w)
+    return acc
+
+
+_CROSS = ((0, 1), (2, 1), (1, 0), (1, 2))
+
+
+def _drop_tiny_components(fg: torch.Tensor) -> torch.Tensor:
+    """Remove the components the reference's ``w*h < 3`` bbox test skips
+    (textmask.py:100-101): singletons and straight 2-pixel pairs; diagonal
+    pairs have a 2x2 bbox and stay."""
+    _, h, w = fg.shape
+    n8 = _count_neighbors(fg, [(a, b) for a in range(3) for b in range(3) if (a, b) != (1, 1)])
+    n4 = _count_neighbors(fg, _CROSS)
+    # a straight pair: both ends have exactly one 8-neighbour, 4-adjacent
+    p = F.pad(((n8 == 1) & fg).to(torch.uint8), (1, 1, 1, 1))
+    partner_lone = torch.zeros(fg.shape, dtype=torch.bool, device=fg.device)
+    for dy, dx in _CROSS:
+        partner_lone |= _shifted(p, dy, dx, h, w) != 0
+    singleton = n8 == 0
+    straight_pair = (n8 == 1) & (n4 == 1) & partner_lone
+    return fg & ~(singleton | straight_pair)
+
+
+def _merge_labeled(
+    merged: torch.Tensor, fg: torch.Tensor, ids: torch.Tensor, pred: torch.Tensor, cap: int = CAP
+) -> torch.Tensor:
+    """Absorb every component of a labelled candidate whose un-merged pixels
+    match the predicted mask more than they miss it (the reference's
+    xor_merged < xor_origin test, textmask.py:95-110), as one signed sum."""
+    new = fg & ~merged
+    signed = torch.where(new, torch.where(pred, 1.0, -1.0), 0.0)
+    sums = _component_sums(ids, signed[None], cap=cap)
+    take = _take_accept(ids, sums[0] > 0)
+    return merged | (fg & take)
+
+
+def _merge_candidate(merged: torch.Tensor, cand: torch.Tensor, pred: torch.Tensor, cap: int = CAP) -> torch.Tensor:
+    """CC + tiny-drop + :func:`_merge_labeled` for one candidate set."""
+    fg = _drop_tiny_components(cand)
+    return _merge_labeled(merged, fg, _component_ids(fg), pred, cap=cap)
+
+
+def _fill_holes(merged: torch.Tensor, pred: torch.Tensor, in_window: torch.Tensor, cap: int = CAP) -> torch.Tensor:
+    """Adopt small components of the inverse mask that reduce the XOR
+    objective (reference textmask.py:113-131).  The area threshold is the
+    second-largest area among {merged region, inverse components}, each
+    counted inside the window only."""
+    inv = ~merged
+    ids = _component_ids(inv)
+    inside = inv & in_window
+    signed = torch.where(inside, torch.where(pred, 1.0, -1.0), 0.0)
+    sums = _component_sums(ids, torch.stack([signed, inside.float()]), cap=cap)
+    eff_area = sums[1]
+    merged_area = (merged & in_window).sum(dim=(1, 2)).float()
+    all_areas = torch.cat([merged_area[:, None], eff_area[:, 1:]], dim=1)
+    thresh = torch.topk(all_areas, 2, dim=1).values[:, 1]
+    accept = (sums[0] > 0) & (eff_area < thresh[:, None])
+    take = _take_accept(ids, accept)
+    return merged | (inv & take & in_window)
+
+
+# ---------------------------------------------------------------------------
+# 3x3 morphology on window batches, constant border (cv2 on crops)
+# ---------------------------------------------------------------------------
+
+
+def _stencil(x: torch.Tensor, offsets, border: int, reduce) -> torch.Tensor:
+    _, h, w = x.shape
+    p = F.pad(x, (1, 1, 1, 1), value=border)
+    acc = x
+    for dy, dx in offsets:
+        acc = reduce(acc, _shifted(p, dy, dx, h, w))
+    return acc
+
+
+_RECT3 = tuple((a, b) for a in range(3) for b in range(3))
+
+
+def _erode_rect3(x: torch.Tensor) -> torch.Tensor:
+    return _stencil(x, _RECT3, 255, torch.minimum)
+
+
+def _dilate_rect3(x: torch.Tensor) -> torch.Tensor:
+    return _stencil(x, _RECT3, 0, torch.maximum)
+
+
+def _erode_ellipse3(x: torch.Tensor) -> torch.Tensor:
+    return _stencil(x, _CROSS, 255, torch.minimum)
+
+
+# ---------------------------------------------------------------------------
+# One dispatch
+# ---------------------------------------------------------------------------
+
+
+def _candidates(win_img: torch.Tensor, win_msk: torch.Tensor, in_window: torch.Tensor):
+    """The 4 candidate masks per window: 3 grey-histogram bands and the best
+    per-channel Otsu (reference get_topk_masklist / get_otsuthresh_masklist).
+
+    Returns (4, K, sh, sw) uint8 candidates and (4, K) int32 XOR scores;
+    unused band slots are all zero with score ``_XOR_INVALID``."""
+    k, sh, sw = win_msk.shape
+    n = sh * sw
+    dev = win_msk.device
+    grey = bgr2gray_u8(win_img)
+    # the window edge does not erode (cv2's erode border is +inf)
+    eroded = _erode_rect3(torch.where(in_window, win_msk, 255))
+    sel = ((eroded > 127) & in_window).reshape(k, n).float()
+    any_sel = sel.sum(dim=1) > 0
+    weights = torch.where(any_sel[:, None], sel, in_window.reshape(k, n).float())
+
+    hist = _hist256(grey.reshape(k, n), weights)
+    present = hist > 0
+    lvl = torch.arange(256, dtype=torch.float32, device=dev)
+    lo = torch.where(present, lvl, 256.0).amin(dim=1)
+    hi = torch.where(present, lvl, -1.0).amax(dim=1)
+    # np.histogram's 255 bins over [lo, hi]; one level alone gets a span
+    width = (hi - lo).clamp_min(1e-6) / 255.0
+    # rebin the 256 levels (clamped before the cast, which then truncates
+    # exactly as the clipped int32 cast does)
+    bin_of = ((lvl[None, :] - lo[:, None]) / width[:, None]).clamp(0, 254).to(torch.int64)
+    counts255 = torch.zeros((k, 255), dtype=torch.float32, device=dev).scatter_add_(1, bin_of, hist)
+    colors, n_colors = _topk_colors(counts255, lo, width)
+
+    cands, xors = [], []
+    g = grey.float()
+    for b in range(3):
+        c_top = torch.clamp_max(colors[:, b] + 30.0, 255.0)
+        c_bot = c_top - 60.0
+        band = ((g >= c_bot[:, None, None]) & (g <= c_top[:, None, None])).to(torch.uint8) * 255
+        band, x = _pick_polarity(band, win_msk, in_window)
+        ok = n_colors > b
+        cands.append(torch.where(ok[:, None, None], band, 0))
+        xors.append(torch.where(ok, x, _XOR_INVALID))
+
+    # per-channel Otsu, the three channels in one batch; keep the best
+    planes = win_img.permute(3, 0, 1, 2)  # (3, K, sh, sw)
+    hist_c = _hist256(planes.reshape(3 * k, n), in_window.reshape(1, k, n).expand(3, k, n).reshape(3 * k, n))
+    thresh = _otsu_from_hist(hist_c).view(3, k).to(torch.uint8)
+    best_x = torch.full((k,), _XOR_INVALID, dtype=torch.int32, device=dev)
+    best_m = torch.zeros((k, sh, sw), dtype=torch.uint8, device=dev)
+    for ch in range(3):
+        th = (planes[ch] > thresh[ch][:, None, None]).to(torch.uint8) * 255
+        th, x = _pick_polarity(th, win_msk, in_window)
+        better = x < best_x
+        best_x = torch.where(better, x, best_x)
+        best_m = torch.where(better[:, None, None], th, best_m)
+    cands.append(best_m)
+    xors.append(best_x)
+    return torch.stack(cands), torch.stack(xors)
+
+
+def _refine_windows(
+    imgs: torch.Tensor,
+    masks: torch.Tensor,
+    boxes: np.ndarray,
+    valid: np.ndarray,
+    page_ids: np.ndarray,
+    refine_mode: int,
+    win_hw: Tuple[int, int],
+    cap: int,
+    exact: bool,
+    canvas: torch.Tensor,
+) -> None:
+    """Refine K block windows (possibly of several pages) in one dispatch
+    and OR the 0/255 results into ``canvas`` in place.
+
+    imgs (P, H, W, 3) uint8 BGR at the original resolution, masks (P, H, W)
+    uint8 raw predicted masks; boxes (K, 4) int xyxy, valid (K,) bool and
+    page_ids (K,) on the host.  ``exact``: every window fits the bucket, so
+    the 1:1 paste serves (canvas padded by the bucket's size); otherwise the
+    resampling paste (canvas of any padding)."""
+    sh, sw = win_hw
+    k = boxes.shape[0]
+    win_img, win_msk, in_window = extract_windows(imgs, masks, boxes, page_ids, win_hw)
+    cands, xors = _candidates(win_img, win_msk, in_window)
+
+    # eroded, binarised prediction target (textmask.py:88-91)
+    pred = (_erode_ellipse3(torch.where(in_window, win_msk, 255)) > 60) & in_window
+    order = torch.sort(xors, dim=0, stable=True).indices  # bands before Otsu on ties
+
+    # one CC pass over all 4*K candidates; only the merge is sequential
+    fgs = _drop_tiny_components((cands > 0).reshape(4 * k, sh, sw))
+    ids_all = _component_ids(fgs).reshape(4, k, sh, sw)
+    fgs = fgs.reshape(4, k, sh, sw)
+    slot = torch.arange(k, device=fgs.device)
+    merged = torch.zeros((k, sh, sw), dtype=torch.bool, device=fgs.device)
+    for rank in range(4):
+        idx = order[rank]
+        merged = _merge_labeled(merged, fgs[idx, slot], ids_all[idx, slot], pred, cap=cap)
+
+    if refine_mode == REFINEMASK_INPAINT:
+        merged = (_dilate_rect3(merged.to(torch.uint8) * 255) > 0) & in_window
+    merged = _fill_holes(merged, pred, in_window, cap=cap)
+
+    out = merged.to(torch.uint8) * 255
+    if exact:
+        paste_windows_exact(canvas, out, boxes, valid, page_ids)
+    else:
+        paste_windows(canvas, out, boxes, valid, page_ids, masks.shape[-2:])
+
+
+def refine_windows(
+    img: torch.Tensor,
+    mask: torch.Tensor,
+    boxes: np.ndarray,
+    valid: np.ndarray,
+    refine_mode: int = REFINEMASK_INPAINT,
+    win_hw: Tuple[int, int] = (S, S),
+    cap: int = CAP,
+) -> torch.Tensor:
+    """Refine K windows of one page in one dispatch with the resampling
+    paste (any window size) -> (H, W) uint8 canvas."""
+    boxes = np.asarray(boxes, np.int32).reshape(-1, 4)
+    canvas = torch.zeros(mask.shape, dtype=torch.uint8, device=mask.device)
+    _refine_windows(
+        img[None], mask[None], boxes, np.asarray(valid, bool), np.zeros((len(boxes),), np.int64),
+        refine_mode, win_hw, cap, False, canvas[None],
+    )
+    return canvas
+
+
+def _bucket_index(w: int, h: int) -> int:
+    """Smallest BUCKETS entry that holds a (w, h) box 1:1; -1 = none (the
+    resample fallback into the last bucket)."""
+    for bi, (bh, bw, _slots, _cap) in enumerate(BUCKETS):
+        if h <= bh and w <= bw:
+            return bi
+    return -1
+
+
+def refine_pages(
+    imgs: torch.Tensor,
+    masks: torch.Tensor,
+    window_boxes,
+    page_ids,
+    refine_mode: int = REFINEMASK_INPAINT,
+) -> torch.Tensor:
+    """Refine any number of block windows across a page stack.
+
+    imgs (P, H, W, 3) uint8, masks (P, H, W) uint8 (on the device),
+    window_boxes (N, 4) int xyxy in page coordinates (expanded and clamped),
+    page_ids (N,) int, both on the host.  Windows go to the smallest bucket
+    that holds them 1:1 (bit-exact against the host merge), resampled only
+    beyond the largest; each bucket's windows, from all pages, run in
+    dispatches of its slot count, padded with degenerate boxes.  Returns
+    (P, H, W) uint8 0/255 canvases, the OR of each page's windows."""
+    boxes = np.asarray(window_boxes, np.int32).reshape(-1, 4)
+    pids = np.asarray(page_ids, np.int64).reshape(-1)
+    p, h, w = masks.shape
+    pad_h = max(bh for bh, _, _, _ in BUCKETS)
+    pad_w = max(bw for _, bw, _, _ in BUCKETS)
+    canvas = torch.zeros((p, h + pad_h, w + pad_w), dtype=torch.uint8, device=masks.device)
+
+    groups: dict[int, list[int]] = {}
+    for j, (x1, y1, x2, y2) in enumerate(boxes):
+        groups.setdefault(_bucket_index(int(x2 - x1), int(y2 - y1)), []).append(j)
+
+    for bi, idxs in groups.items():
+        exact = bi >= 0
+        bh, bw, slots, cap = BUCKETS[bi if exact else -1]
+        for start in range(0, len(idxs), slots):
+            sel = idxs[start:start + slots]
+            valid = np.zeros((slots,), bool)
+            valid[: len(sel)] = True
+            padded = np.zeros((slots, 4), np.int32)
+            padded[:, 2:] = 1  # degenerate but valid geometry for empty slots
+            padded[: len(sel)] = boxes[sel]
+            pchunk = np.zeros((slots,), np.int64)
+            pchunk[: len(sel)] = pids[sel]
+            # the exact paste clamps starts to the bucket's own padding, as
+            # the JAX package's canvas padded by (bh, bw) does
+            target = canvas[:, : h + bh, : w + bw] if exact else canvas
+            _refine_windows(imgs, masks, padded, valid, pchunk, refine_mode, (bh, bw), cap, exact, target)
+    return canvas[:, :h, :w]
+
+
+def refine_page(img: torch.Tensor, mask: torch.Tensor, window_boxes, refine_mode: int = REFINEMASK_INPAINT):
+    """Single-page :func:`refine_pages` (returns the (H, W) canvas)."""
+    n = len(np.asarray(window_boxes).reshape(-1, 4))
+    return refine_pages(img[None], mask[None], window_boxes, np.zeros((n,), np.int64), refine_mode)[0]

@@ -1,11 +1,15 @@
 """TextDetector — the end-to-end page -> (mask, mask_refined, blk_list) API.
 
 Counterpart of the JAX package's ``pipeline/detector.py::TextDetector`` in
-its default configuration: ``refine_backend="host"``, ``mask_transfer="grey"``,
 float32.  One device step runs upload, cv2-exact letterbox, the three-head
 net, NMS, the un-letterbox of the grey mask to page resolution (cv2-exact,
 the JAX package's ``_upsample_mask``) and the DB decode; the host then groups
-blocks and lines and refines the mask.
+blocks and lines.  The mask is refined on the host (``refine_backend="host"``,
+the default) or on the device (``"device"``: ``ops/refine.py``, reading the
+page and the grey mask the device step already holds).  With
+``mask_transfer="packed"`` (device refine only) the raw mask comes back
+binarised at > 30 and packed 1 bit a pixel, as the refined mask always does
+with the device refine.
 
 Colour contract: the input is a BGR uint8 page and the net reads BGR/255.
 """
@@ -20,12 +24,20 @@ import torch
 from comic_text_detector_tpu_torch import constants as C
 from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
 from comic_text_detector_tpu_torch.models.detector import build_inference_model
+from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
 from comic_text_detector_tpu_torch.ops.nms import nms_single
+from comic_text_detector_tpu_torch.ops.refine import refine_page
 from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
 from comic_text_detector_tpu_torch.postproc.textblock import TextBlock, group_output
 from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
 from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.utils.imgproc import (
+    connected_components_with_stats,
+    expand_textwindow,
+    intersect_area,
+    threshold_binary,
+)
 from comic_text_detector_tpu_torch.weights import load_npz, load_reference_pt, state_dict_from_jax
 
 
@@ -69,14 +81,11 @@ class TextDetector:
     ):
         if half:
             raise NotImplementedError("half=True (bf16) comes with the batch-stream slice of the port")
-        if refine_backend != "host":
-            raise NotImplementedError(
-                "refine_backend='device' comes with the device-refine slice of the port (kernel K1)"
-            )
-        if mask_transfer != "grey":
-            raise NotImplementedError(
-                "mask_transfer='packed' comes with the device-refine slice of the port"
-            )
+        # packed mode needs the device refine: the host refine reads grey values
+        if mask_transfer == "packed" and refine_backend != "device":
+            raise ValueError("mask_transfer='packed' requires refine_backend='device'")
+        self.refine_backend = refine_backend
+        self.mask_transfer = mask_transfer
         self.device = resolve_device(device)
         if isinstance(input_size, tuple):
             input_size = input_size[0]
@@ -111,7 +120,9 @@ class TextDetector:
     @torch.no_grad()
     def _device_step(self, img: np.ndarray):
         """Upload -> letterbox -> net -> NMS, grey-mask un-letterbox and DB
-        decode; every output stays on the device."""
+        decode; every output stays on the device.  Also returns the uploaded
+        page and the page-resolution grey mask, which the device refine
+        reads; in packed mode the mask to download is ``up > 30`` packed."""
         size = self.input_size[0]
         im_h, im_w = img.shape[:2]
         _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
@@ -125,7 +136,8 @@ class TextDetector:
         mask_full = (mask[0, 0].to(torch.float32) * 255.0).to(torch.uint8)
         mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
         boxes, scores, valid = db_decode_full_device(lines[0, 0].to(torch.float32), self.db_thresh)
-        return rows, count, mask_page, boxes, scores, valid
+        mask_out = packbits_rows(mask_page > 30) if self.mask_transfer == "packed" else mask_page
+        return rows, count, mask_out, boxes, scores, valid, img_dev, mask_page
 
     def __call__(
         self,
@@ -136,9 +148,12 @@ class TextDetector:
         im_h, im_w = img.shape[:2]
         size = self.input_size[0]
         _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
-        rows, count, mask, dboxes, dscores, dvalid = (
-            t.cpu().numpy() for t in self._device_step(img)
-        )
+        *host_out, img_dev, mask_dev = self._device_step(img)
+        rows, count, mask_out, dboxes, dscores, dvalid = (t.cpu().numpy() for t in host_out)
+        if self.mask_transfer == "packed":
+            mask = np.unpackbits(mask_out, axis=-1)[:, :im_w] * np.uint8(255)
+        else:
+            mask = mask_out
 
         resize_ratio = (im_w / (size - dw), im_h / (size - dh))
         blks = postprocess_yolo(rows, int(count), resize_ratio)
@@ -156,7 +171,63 @@ class TextDetector:
             lines = lines.astype(np.int32)
 
         blk_list = group_output(blks, lines, im_w, im_h, mask)
-        mask_refined = refine_mask(img, mask, blk_list, refine_mode=refine_mode)
-        if keep_undetected_mask:
-            mask_refined = refine_undetected_mask(img, mask, mask_refined, blk_list, refine_mode=refine_mode)
+        if self.refine_backend == "device":
+            mask_refined = _refine_on_device(
+                img_dev, mask_dev, blk_list, img.shape, refine_mode, mask if keep_undetected_mask else None
+            )
+        else:
+            mask_refined = refine_mask(img, mask, blk_list, refine_mode=refine_mode)
+            if keep_undetected_mask:
+                mask_refined = refine_undetected_mask(img, mask, mask_refined, blk_list, refine_mode=refine_mode)
         return mask, mask_refined, blk_list
+
+
+def _download_canvas(canvas: torch.Tensor, im_w: int) -> np.ndarray:
+    """Binary canvas -> host 0/255 uint8, shipped 1 bit a pixel."""
+    packed = packbits_rows(canvas > 0).cpu().numpy()
+    return (np.unpackbits(packed, axis=-1) * np.uint8(255))[:, :im_w]
+
+
+def _refine_on_device(img_dev, mask_dev, blk_list, img_shape, refine_mode, undetected_mask=None) -> np.ndarray:
+    """Device refine at the original page resolution: the uploaded page and
+    the page-resolution grey mask are already on the device, and every
+    block window refines in batched dispatches (``ops/refine.py``)."""
+    im_w = img_shape[1]
+    windows = [expand_textwindow(img_shape, blk.xyxy, expand_r=16) for blk in blk_list]
+    canvas = refine_page(img_dev, mask_dev, np.asarray(windows).reshape(-1, 4), refine_mode)
+    if undetected_mask is not None:
+        refined_orig = _download_canvas(canvas, im_w)
+        extra = _rescue_undetected_device(
+            img_dev, mask_dev, canvas, refined_orig, undetected_mask, blk_list, img_shape, refine_mode
+        )
+        if extra is None:
+            return refined_orig
+        canvas = canvas | extra
+    return _download_canvas(canvas, im_w)
+
+
+def _rescue_undetected_device(
+    img_dev, mask_dev, canvas, refined_host, undetected_mask, blk_list, img_shape, refine_mode
+):
+    """Rescue raw-mask components no block covers (reference
+    textmask.py:135-156): CC over the host raw mask minus the refined area
+    picks the windows, the refine runs on the device.  Returns the extra
+    device canvas, or None when nothing needs rescuing."""
+    rescue_mask = undetected_mask.copy()
+    rescue_mask[refined_host > 30] = 0
+    # already-refined areas are left out of the rescue's prediction too
+    mask_excl = torch.where(canvas > 30, 0, mask_dev)
+    pred_t = threshold_binary(rescue_mask, 30)
+    n, _labels, stats, _c = connected_components_with_stats(pred_t, 4)
+    boxes = []
+    for li in range(1, n):
+        x, y, w, h, area = stats[li]
+        if area <= 50:
+            continue
+        bbox = [x, y, x + w, y + h]
+        best = max((intersect_area(blk.xyxy, bbox) for blk in blk_list), default=-1)
+        if best / w / h < 0.5:
+            boxes.append(expand_textwindow(img_shape, bbox, expand_r=16))
+    if not boxes:
+        return None
+    return refine_page(img_dev, mask_excl, np.asarray(boxes), refine_mode)

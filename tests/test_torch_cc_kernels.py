@@ -1,5 +1,8 @@
-"""Port's connected-components route (K2, K3, split ids) vs the JAX Pallas
-kernels run in interpret mode, bit for bit.
+"""Port's connected-components kernels (K1, K2, K3) and ids route vs the JAX
+package, bit for bit: against the Pallas kernels run in interpret mode, and
+for K1 at the refine's bucket shapes against the refine's own CPU route,
+``refine._component_ids(fg, backend="grid")`` (interpret mode is too slow
+there).  Ids are integers with one right answer, so nothing is tolerated.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the tests
 marked ``cuda`` hold the CUDA kernels against those plain versions and run
@@ -12,6 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
+from comic_text_detector_tpu.ops import refine as JR
 from comic_text_detector_tpu.ops.pallas_kernels import (
     _CC_BIG,
     cc_ids_windows_local as jax_cc_ids,
@@ -48,6 +52,17 @@ def _windows(h: int, w: int, seed: int) -> np.ndarray:
         serp,
         _glyphs(h, w, seed),
     ])
+
+
+# the device refine's window buckets, and windows per dispatch (4 x slots)
+BUCKETS = [((256, 256), 32), ((256, 512), 24), ((512, 256), 24), ((256, 640), 16), ((640, 256), 16),
+           ((512, 512), 12)]
+
+
+def _k1_windows(h: int, w: int, seed: int) -> np.ndarray:
+    """Glyph, serpentine, 45% noise, all-zero and all-one windows."""
+    return np.concatenate([_windows(h, w, seed)[[2, 1, 0]], np.zeros((1, h, w), np.uint8),
+                           np.ones((1, h, w), np.uint8)])
 
 
 def _seeds(masks: np.ndarray, seed: int) -> np.ndarray:
@@ -90,6 +105,40 @@ def test_split_ids_matches_jax_at_512x640():
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("shape", [(64, 128), (128, 128)])
+def test_k1_plain_matches_jax_fused_kernel(shape):
+    masks = _k1_windows(*shape, seed=6)
+    ref = np.asarray(jax_cc_ids(jnp.asarray(masks), True))
+    got = K.cc_ids_fused(torch.from_numpy(masks)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [b[0] for b in BUCKETS])
+def test_k1_plain_matches_jax_component_ids_at_buckets(shape):
+    masks = _k1_windows(*shape, seed=7)
+    ref = np.asarray(JR._component_ids(jnp.asarray(masks > 0), backend="grid"))
+    got = K.cc_ids_windows_local(torch.from_numpy(masks)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_ids_route_by_window_size(monkeypatch):
+    """Up to 512x512 the ids come from K1, above from the split route, and
+    above 1024x1024 the call raises, as in the JAX package."""
+    calls = []
+    monkeypatch.setattr(K, "cc_ids_fused", lambda m: calls.append("K1") or m.int())
+    monkeypatch.setattr(K, "_split_ids", lambda m, *fns: calls.append("split") or m.int())
+    for shape in [(1, 8, 8), (1, 512, 512), (1, 640, 256), (1, 513, 512), (1, 1024, 1024)]:
+        K.cc_ids_windows_local(torch.zeros(shape, dtype=torch.uint8))
+    assert calls == ["K1", "K1", "K1", "split", "split"]
+    with pytest.raises(ValueError):
+        K.cc_ids_windows_local(torch.zeros((1, 1025, 1024), dtype=torch.uint8))
+
+
+def test_k1_refuses_windows_above_512x512():
+    with pytest.raises(ValueError):
+        K.cc_ids_fused(torch.zeros((1, 513, 512), dtype=torch.uint8))
+
+
 def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         K.cc_windows_local(torch.zeros((4, 4), dtype=torch.uint8))
@@ -101,9 +150,13 @@ def test_wrappers_validate_inputs():
 
 
 def test_cpu_route_does_not_count_launches():
-    before = (K.cc_windows_local.launches, K.min_prop_windows_local.launches)
+    def counts():
+        return K.cc_windows_local.launches, K.min_prop_windows_local.launches, K.cc_ids_fused.launches
+
+    before = counts()
     K.cc_ids_windows_local(torch.ones((1, 8, 8), dtype=torch.uint8))
-    assert (K.cc_windows_local.launches, K.min_prop_windows_local.launches) == before
+    K.cc_ids_windows_local(torch.ones((1, 600, 600), dtype=torch.uint8))
+    assert counts() == before
 
 
 @pytest.fixture
@@ -123,3 +176,14 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
         K.min_prop_windows_local(masks, seeds), K.min_prop_windows_local_plain(masks, seeds)
     )
     assert torch.equal(K.cc_ids_windows_local(masks), K.cc_ids_windows_local_plain(masks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", BUCKETS)
+def test_k1_matches_plain_version_on_card(cuda_device, bucket):
+    (h, w), n = bucket
+    masks = torch.from_numpy(np.resize(_k1_windows(h, w, seed=8), (n, h, w))).to(cuda_device)
+    before = K.cc_ids_fused.launches
+    got = K.cc_ids_windows_local(masks)
+    assert K.cc_ids_fused.launches == before + 1
+    assert torch.equal(got, K.cc_ids_windows_local_plain(masks))

@@ -1,14 +1,20 @@
 """The port's whole slice vs the JAX TextDetector on rendered pages.
 
-Both run the default configuration (host refine, grey mask, float32) with
-the flagship_r2 weights at input size 256.  Tolerances:
+Both run with the flagship_r2 weights in float32 at input size 256, in the
+default configuration (host refine, grey mask) and in the device-refine
+ones (``refine_backend="device"`` with ``mask_transfer="packed"`` or
+``"grey"``).  Tolerances:
 
 * ``blk_list``: the same count; each block's xyxy within 1 px, the same
   language, orientation and line quads;
-* ``mask``: bit-equal to the JAX package's device un-letterbox
+* ``mask``, grey: bit-equal to the JAX package's device un-letterbox
   (``_upsample_mask``, cv2-exact) and within 1 grey level of the JAX
   TextDetector's own grey mask, which it resizes on the host with PIL;
-* ``mask_refined``: IoU >= 0.99 with the JAX result.
+* ``mask``, packed: bit-equal (both binarise the same cv2-exact upsample);
+* ``mask_refined``, host refine: IoU >= 0.99 with the JAX result;
+* ``mask_refined``, device refine: bit-equal.  Both refine the same page
+  and the same cv2-exact grey mask, and the port's refine is bit-equal to
+  the JAX package's (``tests/test_torch_refine.py``).
 """
 
 import os
@@ -48,11 +54,36 @@ def _pages():
 
 
 @pytest.fixture(scope="module")
-def detectors():
-    variables = load_compact(WEIGHTS)
+def variables():
+    return load_compact(WEIGHTS)
+
+
+@pytest.fixture(scope="module")
+def detectors(variables):
     jax_det = JaxTextDetector(variables=variables, input_size=SIZE)
     port = TextDetector(WEIGHTS, input_size=SIZE, device="cpu")
     return jax_det, port
+
+
+@pytest.fixture(scope="module")
+def device_detectors(variables):
+    """(JAX, port) pairs with the device refine, by mask transfer."""
+    kw = dict(input_size=SIZE, refine_backend="device")
+    return {
+        transfer: (
+            JaxTextDetector(variables=variables, mask_transfer=transfer, **kw),
+            TextDetector(WEIGHTS, device="cpu", mask_transfer=transfer, **kw),
+        )
+        for transfer in ("packed", "grey")
+    }
+
+
+def _same_blocks(blks, jblks):
+    assert len(blks) == len(jblks) > 0
+    for a, b in zip(blks, jblks):
+        assert np.abs(np.asarray(a.xyxy) - np.asarray(b.xyxy)).max() <= 1
+        assert (a.language, bool(a.vertical)) == (b.language, bool(b.vertical))
+        np.testing.assert_array_equal(np.asarray(a.lines), np.asarray(b.lines))
 
 
 @pytest.mark.parametrize("page", [0, 1, 2])
@@ -61,12 +92,7 @@ def test_slice_matches_jax_text_detector(detectors, page):
     img = _pages()[page]
     jmask, jrefined, jblks = jax_det(img.copy())
     mask, refined, blks = port(img.copy())
-
-    assert len(blks) == len(jblks) > 0
-    for a, b in zip(blks, jblks):
-        assert np.abs(np.asarray(a.xyxy) - np.asarray(b.xyxy)).max() <= 1
-        assert (a.language, bool(a.vertical)) == (b.language, bool(b.vertical))
-        np.testing.assert_array_equal(np.asarray(a.lines), np.asarray(b.lines))
+    _same_blocks(blks, jblks)
 
     # the JAX device un-letterbox of the JAX net's own grey mask
     h, w = img.shape[:2]
@@ -89,10 +115,40 @@ def test_keep_undetected_mask_runs(detectors):
     assert refined.shape == mask.shape == img.shape[:2] and refined.dtype == np.uint8
 
 
+@pytest.mark.parametrize("transfer", ["packed", "grey"])
+@pytest.mark.parametrize("page", [0, 1, 2])
+def test_device_refine_matches_jax_text_detector(device_detectors, transfer, page):
+    jax_det, port = device_detectors[transfer]
+    img = _pages()[page]
+    jmask, jrefined, jblks = jax_det(img.copy())
+    mask, refined, blks = port(img.copy())
+    _same_blocks(blks, jblks)
+    assert mask.shape == refined.shape == img.shape[:2] and mask.dtype == refined.dtype == np.uint8
+    if transfer == "packed":
+        np.testing.assert_array_equal(mask, jmask)
+    else:
+        assert np.abs(mask.astype(np.int16) - jmask).max() <= 1
+    np.testing.assert_array_equal(refined, jrefined)
+
+
+def test_device_refine_keep_undetected_matches_jax(device_detectors):
+    jax_det, port = device_detectors["packed"]
+    img = _pages()[2]
+    jmask, jrefined, _ = jax_det(img.copy(), keep_undetected_mask=True)
+    mask, refined, _ = port(img.copy(), keep_undetected_mask=True)
+    np.testing.assert_array_equal(mask, jmask)
+    np.testing.assert_array_equal(refined, jrefined)
+
+
+def test_packed_without_device_refine_raises():
+    with pytest.raises(ValueError, match="packed"):
+        TextDetector(model_path=None, variables={}, device="cpu", mask_transfer="packed")
+
+
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(half=True), dict(refine_backend="device"), dict(mask_transfer="packed"),
-     dict(model_path="model.onnx", variables=None), dict(model_path="model.stablehlo", variables=None)],
+    [dict(half=True), dict(model_path="model.onnx", variables=None),
+     dict(model_path="model.stablehlo", variables=None)],
 )
 def test_later_slices_raise_not_implemented(kwargs):
     args = dict(model_path=None, variables={}, device="cpu")
