@@ -25,7 +25,7 @@ class Conv(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, act: str = "silu"):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, tnn.autopad(k, p), groups=g, bias=False)
+        self.conv = tnn.Conv2d(c1, c2, k, s, tnn.autopad(k, p), groups=g, bias=False)
         self.bn = tnn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = tnn.ACTIVATIONS[act]
 

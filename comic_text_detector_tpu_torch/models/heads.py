@@ -27,7 +27,7 @@ class DoubleConvUpC3(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             C3(in_ch, mid_ch, n=1, act=act),
-            nn.ConvTranspose2d(mid_ch, out_ch, kernel_size=4, stride=2, padding=1, bias=False),
+            tnn.ConvTranspose2d(mid_ch, out_ch, kernel_size=4, stride=2, padding=1, bias=False),
             tnn.BatchNorm2d(out_ch, eps=_BN_EPS),
             nn.ReLU(),
         )
@@ -64,7 +64,7 @@ class UnetHead(nn.Module):
         self.upconv4 = DoubleConvUpC3(384, 256, 128, act=act)
         self.upconv5 = DoubleConvUpC3(192, 128, 64, act=act)
         self.upconv6 = nn.Sequential(
-            nn.ConvTranspose2d(64, 1, kernel_size=4, stride=2, padding=1, bias=False),
+            tnn.ConvTranspose2d(64, 1, kernel_size=4, stride=2, padding=1, bias=False),
             nn.Sigmoid(),
         )
 
@@ -84,13 +84,13 @@ def _tower(in_ch: int, conv_bias: bool) -> nn.Sequential:
     (DBHead.binarize / .thresh, basemodel.py:95-103, :130-143)."""
     c4 = in_ch // 4
     return nn.Sequential(
-        nn.Conv2d(in_ch, c4, 3, padding=1, bias=conv_bias),
+        tnn.Conv2d(in_ch, c4, 3, padding=1, bias=conv_bias),
         tnn.BatchNorm2d(c4, eps=_BN_EPS),
         nn.ReLU(),
-        nn.ConvTranspose2d(c4, c4, 2, 2),
+        tnn.ConvTranspose2d(c4, c4, 2, 2),
         tnn.BatchNorm2d(c4, eps=_BN_EPS),
         nn.ReLU(),
-        nn.ConvTranspose2d(c4, 1, 2, 2),
+        tnn.ConvTranspose2d(c4, 1, 2, 2),
     )
 
 
@@ -108,7 +108,7 @@ class DBHead(nn.Module):
         self.upconv3 = DoubleConvUpC3(512, 512, 256, act=act)
         self.upconv4 = DoubleConvUpC3(384, 256, 128, act=act)
         self.conv = nn.Sequential(
-            nn.Conv2d(128, in_channels, 1, bias=True),
+            tnn.Conv2d(128, in_channels, 1, bias=True),
             tnn.BatchNorm2d(in_channels, eps=_BN_EPS),
             nn.ReLU(),
         )

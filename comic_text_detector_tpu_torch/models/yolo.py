@@ -14,6 +14,7 @@ from torch import nn
 
 from comic_text_detector_tpu_torch.config import OUT_INDICES, GraphSpec
 from comic_text_detector_tpu_torch.models import blocks
+from comic_text_detector_tpu_torch.ops import nn as tnn
 
 
 class Detect(nn.Module):
@@ -33,7 +34,7 @@ class Detect(nn.Module):
         self.strides = tuple(float(s) for s in strides)
         a = torch.tensor(anchors, dtype=torch.float32).view(len(anchors), -1, 2)
         self.register_buffer("anchors", a / torch.tensor(self.strides).view(-1, 1, 1))
-        self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+        self.m = nn.ModuleList(tnn.Conv2d(c, self.no * self.na, 1) for c in ch)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         out: List[torch.Tensor] = []

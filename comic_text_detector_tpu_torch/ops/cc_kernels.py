@@ -20,35 +20,25 @@ split route, K2, a cumsum of the roots in raster order, K3; above 1024x1024
 it raises.  Both routes give the same ids.
 
 All three kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
-plain-C shared library on first use and bound with ``ctypes``.  Each wrapper
-launches its kernel for a CUDA tensor, uses the plain PyTorch version beside
-it for a CPU tensor, and counts its launches in ``<wrapper>.launches``.
+plain-C shared library on first use (``ops/cuda_build.py``) and bound with
+``ctypes``.  Each wrapper launches its kernel for a CUDA tensor, uses the
+plain PyTorch version beside it for a CPU tensor, and counts its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from comic_text_detector_tpu_torch.ops import cuda_build
 
 CC_BIG = 2**30
 _INT32_MAX = 2**31 - 1
 FUSED_IDS_MAX_ELEMS = 512 * 512  # K1's largest window (pallas_kernels.py:389)
 IDS_MAX_ELEMS = 1024 * 1024  # the split route's largest window (pallas_kernels.py:465)
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "cc.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 # W, NW, N, NE: each 8-neighbour pair is visited once, from its later pixel
 _BACK_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
@@ -59,42 +49,9 @@ _BACK_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
-
-
-def library_path() -> str:
-    """Where the built library lives; the name carries a hash of the source
-    and flags, so an edited source never loads a stale build."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libctd_cc_{digest}.so")
-
-
-def build() -> float:
-    """Compile ``csrc/cc.cu`` with one nvcc call unless the library exists.
-    Returns the seconds spent compiling (0.0 when it was already built)."""
-    out = library_path()
-    if os.path.exists(out):
-        return 0.0
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE], check=True)
-    os.replace(tmp, out)
-    return time.perf_counter() - t0
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(library_path())
+    lib = cuda_build.load("cc.cu")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ctd_cc_window.argtypes = [p, p, p, i, i, i, p]
     lib.ctd_cc_window.restype = i

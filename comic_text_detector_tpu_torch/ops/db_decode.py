@@ -1,12 +1,16 @@
 """DB (differentiable binarization) shrink map -> rotated text-line boxes.
 
 Counterpart of the JAX package's ``ops/db_decode.py`` on its rank-ids
-contract (``db_decode_full_device(..., rank_ids=True)``): the components of
-the binarized map come as dense raster-order ids from the CC kernels
+contract (``db_decode_full_device(..., rank_ids=True)``): the map is
+binarized by K6 (``ops/finalize.py::binarize``), its components come as
+dense raster-order ids from the CC kernels
 (``ops/cc_kernels.py::cc_ids_windows_local``, K2 -> cumsum -> K3); a
-sorted table of boundary pixels feeds a 90-angle min-area-rect scan; area
-and probability sums are scatter-adds.  ``boxes_from_device_rects`` is the
-host finisher.
+sorted table of boundary pixels feeds a 90-angle min-area-rect scan.  The
+component areas are integer scatter-adds and the probability sums a
+segmented reduction over the pixels sorted by id, so neither depends on the
+order of the card's atomics: repeated runs give the same bits.
+``db_decode_batch`` binarizes and labels a stack of maps with one launch of
+each kernel; ``boxes_from_device_rects`` is the host finisher.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ import torch.nn.functional as F
 from comic_text_detector_tpu_torch.constants import MAX_DB_COMPONENTS
 from comic_text_detector_tpu_torch.ops import geometry as geo
 from comic_text_detector_tpu_torch.ops.cc_kernels import cc_ids_windows_local
+from comic_text_detector_tpu_torch.ops.finalize import binarize
+
+_REST_SEGMENTS = 1024  # short segments that share the pixels outside every counted id
 
 
 def _segment_reduce(values: torch.Tensor, ids: torch.Tensor, n: int, reduce: str) -> torch.Tensor:
@@ -29,6 +36,52 @@ def _segment_reduce(values: torch.Tensor, ids: torch.Tensor, n: int, reduce: str
     fill = math.inf if reduce == "amin" else -math.inf
     out = torch.full((n, values.shape[1]), fill, dtype=values.dtype, device=values.device)
     return out.scatter_reduce_(0, ids[:, None].expand_as(values), values, reduce)
+
+
+def _component_sums(values: torch.Tensor, labels: torch.Tensor, capacity: int):
+    """(area int64 (C,), probability sum float32 (C,)) of ids 1..C-1; id 0
+    holds 0.  The areas are the runs of each id among the pixels stably
+    sorted by id, and the sums a segmented reduction over those runs: no
+    atomics, so the card gives the same bits on every run, and on the CPU
+    each sum is the sequential float32 sum in raster order, the order of
+    the JAX package's scatter-add.  Pixels of no counted id (background,
+    ids >= C) fill ``_REST_SEGMENTS`` short segments at the end, so that no
+    segment spans most of the map."""
+    dev = values.device
+    flat = labels.reshape(-1).long()
+    key = torch.where((flat > 0) & (flat < capacity), flat, capacity)
+    skey, order = torch.sort(key, stable=True)
+    # segment lengths from the sorted ids: no atomics on the crowded rest slot
+    bounds = torch.searchsorted(skey, torch.arange(capacity + 2, device=dev))
+    counts = bounds[1:] - bounds[:-1]
+    ordered = values.reshape(-1)[order]
+    rest = counts[capacity]
+    step = (rest + _REST_SEGMENTS - 1) // _REST_SEGMENTS
+    starts = torch.arange(_REST_SEGMENTS, device=dev) * step
+    rest_lengths = torch.minimum((rest - starts).clamp_min(0), step)
+    lengths = torch.cat([counts[:capacity], rest_lengths])
+    sums = torch.segment_reduce(ordered, "sum", lengths=lengths, unsafe=True)
+    return counts[:capacity], sums[:capacity]
+
+
+def db_decode_batch(
+    shrink_maps: torch.Tensor,
+    thresh: float,
+    capacity: int = MAX_DB_COMPONENTS,
+    angle_steps: int = 90,
+    max_boundary: int = 8192,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, H, W) probability maps -> (boxes (B, C, 4, 2) f32, scores (B, C),
+    valid (B, C)), each page as :func:`db_decode_full_device` decodes it.
+    One K6 launch binarizes the stack and one ``cc_ids_windows_local`` call
+    labels it; the boundary table and angle scan run page by page."""
+    bitmaps = binarize(shrink_maps, thresh)
+    labels = cc_ids_windows_local(bitmaps)
+    outs = [
+        _decode_labeled(shrink_maps[i], labels[i], capacity, angle_steps, max_boundary)
+        for i in range(shrink_maps.shape[0])
+    ]
+    return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def db_decode_full_device(
@@ -46,10 +99,16 @@ def db_decode_full_device(
     in the JAX package.  Exact for axis-aligned text (angle 0 is on the
     grid), within (90/angle_steps)° otherwise.
     """
+    boxes, scores, valid = db_decode_batch(shrink_map[None], thresh, capacity, angle_steps, max_boundary)
+    return boxes[0], scores[0], valid[0]
+
+
+def _decode_labeled(
+    shrink_map: torch.Tensor, labels: torch.Tensor, capacity: int, angle_steps: int, max_boundary: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One page's decode from its map and its dense component ids."""
     h, w = shrink_map.shape
     dev = shrink_map.device
-    bitmap = (shrink_map > thresh).to(torch.uint8)
-    labels = cc_ids_windows_local(bitmap[None])[0]
 
     # boundary pixels: any 4-neighbour differs (the image border counts)
     big = h * w + 1
@@ -90,13 +149,8 @@ def db_decode_full_device(
     bh = e3 - e2
 
     # component area & probability sum over the full map
-    flat = torch.where(labels < capacity, labels, 0).reshape(-1).long()
-    area = torch.zeros(capacity, dtype=torch.float32, device=dev).index_add_(
-        0, flat, torch.ones_like(flat, dtype=torch.float32)
-    )
-    vsum = torch.zeros(capacity, dtype=torch.float32, device=dev).index_add_(
-        0, flat, shrink_map.reshape(-1).to(torch.float32)
-    )
+    counts, vsum = _component_sums(shrink_map.to(torch.float32), labels, capacity)
+    area = counts.to(torch.float32)
     # ids past the truncated boundary table have no extents: zero their
     # area so `valid` drops them (table ids are contiguous 1..max)
     in_table = torch.arange(capacity, device=dev) <= dense.max()

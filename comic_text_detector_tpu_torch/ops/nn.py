@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``ops/nn.py``.  There the primitives pin
 torch semantics onto NHWC ``lax`` calls; here they are torch's own, so this
 module keeps only what the blocks share: the padding rule, the activation
-table, nearest 2x upsampling and eval-mode BatchNorm as one multiply-add in
-the JAX package's arithmetic order.
+table, nearest 2x upsampling, and the layers whose arithmetic follows the
+JAX package's in a lower compute dtype (bf16): convolutions that cast their
+float32 weight to the input's dtype and add the bias after the convolution
+in that dtype, and eval-mode BatchNorm as one multiply-add whose scale and
+shift are formed in float32.  Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -40,6 +43,32 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
 
 def avg_pool2d(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     return F.avg_pool2d(x, k, stride)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the input's dtype, bias added after the convolution
+    (``ops/nn.py::conv2d`` of the JAX package): a fused bias would be added
+    before the bf16 output is rounded and differ by one rounding."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding, self.dilation, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in the input's dtype, bias added after the
+    convolution (``ops/nn.py::conv_transpose2d`` of the JAX package)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(
+            x, self.weight.to(x.dtype), None, self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation,
+        )
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``ops/resize.py``: the letterbox
 arithmetic, the cv2-exact uint8 resize as torch on the device (11-bit fixed
-point, bit-equal to cv2.resize INTER_LINEAR), and its NumPy twin.  No PIL.
+point, bit-equal to cv2.resize INTER_LINEAR), its NumPy twin, and the host
+resize the JAX package uses for the grey mask (``resize_bilinear_fast``:
+Pillow's bilinear upscale, reproduced in NumPy, or cv2-exact).  No PIL.
 """
 
 from __future__ import annotations
@@ -154,3 +156,84 @@ def _lerp_weights(dst: int, src: int):
     i1 = np.clip(x0 + 1, 0, src - 1).astype(np.int32)
     frac = np.where(x < 0, 0.0, frac).astype(np.float32)
     return i0, i1, frac
+
+
+# --- Pillow bit-exact uint8 bilinear upscale ------------------------------------
+#
+# Pillow's ImagingResample (libImaging/Resample.c) with the bilinear filter:
+# per output sample, taps over [xmin, xmin + xmax) of the triangle filter
+# centred at (x + 0.5) * scale, normalised in double, then rounded to 22-bit
+# fixed point; a horizontal pass into a uint8 image (rounding bias 1 << 21,
+# clipped to [0, 255]), then the same vertical pass over it.
+
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bilinear_coefs(in_size: int, out_size: int):
+    """(first tap (out,), fixed-point coefs (out, ksize)) of Pillow's
+    precompute_coeffs + normalize_coeffs_8bpc for the bilinear filter."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)[None, :]
+    w = 1.0 - np.abs((taps + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where((taps < xmax[:, None]) & (w > 0.0), w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    fixed = w * (1 << _PIL_PRECISION_BITS)
+    k = np.where(fixed < 0, np.trunc(-0.5 + fixed), np.trunc(0.5 + fixed)).astype(np.int64)
+    return xmin, k
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One Pillow 8bpc resample pass of uint8 ``img`` along ``axis``.  The
+    bilinear coefficients are >= 0 and sum to about 2**22, so the sums fit
+    int32; taps whose coefficient is 0 for every sample are skipped."""
+    in_size = img.shape[axis]
+    xmin, k = _pil_bilinear_coefs(in_size, out_size)
+    src = img.astype(np.int32)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.full((), 1 << (_PIL_PRECISION_BITS - 1), np.int32)
+    for t in range(k.shape[1]):
+        if not k[:, t].any():
+            continue
+        idx = np.minimum(xmin + t, in_size - 1)
+        acc = acc + np.take(src, idx, axis=axis) * k[:, t].astype(np.int32).reshape(shape)
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_pil_bilinear_u8_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Bit-exact ``PIL.Image.resize((w, h), BILINEAR)`` of a uint8 (H, W[, C])
+    image, for output sizes at least the input's on both axes (Pillow
+    antialiases downscales with a wider filter; use the cv2-exact resize
+    there).  Horizontal pass first, as Pillow runs it."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_pil_bilinear_u8_np: expected uint8, got {img.dtype}")
+    if oh < h or ow < w:
+        raise ValueError(f"resize_pil_bilinear_u8_np: upscales only, got {(h, w)} -> {(oh, ow)}")
+    out = img
+    if ow != w:
+        out = _pil_pass(out, ow, axis=1)
+    if oh != h:
+        out = _pil_pass(out, oh, axis=0)
+    return out.copy() if out is img else out
+
+
+def resize_bilinear_fast(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Host bilinear resize routed as the JAX package's
+    ``resize_bilinear_fast``: Pillow's bilinear where both axes scale up
+    and the image is uint8, cv2-exact otherwise."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return img.copy()
+    if oh >= h and ow >= w and img.dtype == np.uint8:
+        return resize_pil_bilinear_u8_np(img, out_hw)
+    return resize_bilinear_np(img, out_hw)

@@ -1,0 +1,296 @@
+"""BatchTextDetector: the batch stream, the throughput configuration.
+
+Counterpart of the JAX package's ``pipeline/batch.py``.  Pages are
+letterboxed on the device, stacked and run through the net as one batch;
+NMS runs page by page, the grey masks are finalized in one K6 launch
+(``ops/finalize.py::mask_to_u8``) and the DB maps decoded as one stack
+(``ops/db_decode.py::db_decode_batch``).  The host then groups each page's
+blocks and lines, and the masks are refined on the host or, with
+``refine_backend="device"``, in one ``refine_pages`` call per page shape.
+:meth:`BatchTextDetector.stream` reads pages from an iterable in a producer
+thread and keeps batches in flight, so that the next batch is uploaded and
+enqueued while the host finishes the previous one.
+
+Two parts of the JAX class are not ported, because they only schedule work
+on the TPU: padding each batch and each page-shape group to ``batch_size``
+(against XLA retraces), and ``mesh`` (data parallelism over TPU cores),
+which raises if given.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from comic_text_detector_tpu_torch import constants as C
+from comic_text_detector_tpu_torch.ops.bits import packbits_rows
+from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
+from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
+from comic_text_detector_tpu_torch.ops.nms import nms_single
+from comic_text_detector_tpu_torch.ops.refine import refine_pages
+from comic_text_detector_tpu_torch.ops.resize import (
+    letterbox_device_u8,
+    letterbox_shape,
+    resize_bilinear_fast,
+    resize_cv2exact_u8,
+)
+from comic_text_detector_tpu_torch.pipeline.detector import (
+    _rescue_undetected_device,
+    build_model,
+    postprocess_yolo,
+    run_net,
+    scale_lines,
+    unpack_rows,
+)
+from comic_text_detector_tpu_torch.postproc.textblock import group_output
+from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
+from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.utils.imgproc import expand_textwindow
+
+
+class BatchTextDetector:
+    """Fixed-batch detector: up to ``batch_size`` BGR pages per net call.
+
+    Usage::
+
+        det = BatchTextDetector(load_npz("data/flagship_r2.npz"))
+        for mask, mask_refined, blk_list in det.stream(pages):
+            ...
+
+    ``variables`` are the JAX package's weights (``weights.load_npz``).  Runs
+    on ``device="cuda"``; ``device="cpu"`` must be asked for.  ``half=True``
+    (the default, as in the JAX package) runs the net in bf16.
+    """
+
+    def __init__(
+        self,
+        variables,
+        batch_size: int = 4,
+        input_size: int = C.DEFAULT_INPUT_SIZE,
+        act: str = "leaky",
+        cfg: Optional[dict] = None,
+        half: bool = True,
+        conf_thresh: float = C.DEFAULT_CONF_THRESH,
+        nms_thresh: float = C.DEFAULT_NMS_THRESH,
+        mesh=None,
+        refine_backend: str = "host",
+        mask_transfer: str = "grey",
+        device: str = "cuda",
+    ):
+        if mesh is not None:
+            raise NotImplementedError("mesh: TPU data parallelism has no counterpart in the port")
+        if mask_transfer == "packed" and refine_backend != "device":
+            raise ValueError("mask_transfer='packed' requires refine_backend='device'")
+        self.refine_backend = refine_backend
+        self.mask_transfer = mask_transfer
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.size = input_size
+        self.conf_thresh = conf_thresh
+        self.nms_thresh = nms_thresh
+        self.db_thresh = C.DEFAULT_DB_THRESH
+        self.box_thresh = C.DEFAULT_BOX_THRESH
+        self.model = build_model(variables, None, cfg, act, half, self.device)
+
+    def _upload(self, img: np.ndarray) -> torch.Tensor:
+        """Host page -> device, through a pinned buffer on the card (the
+        copy is asynchronous; the caching host allocator keeps the buffer
+        until it completes)."""
+        t = torch.from_numpy(np.ascontiguousarray(img))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    @torch.no_grad()
+    def submit(self, pages: Sequence[np.ndarray]):
+        """Upload, letterbox and run one batch of pages (``stream`` sends
+        ``batch_size`` at a time); returns an opaque ticket for :meth:`collect`.  The outputs
+        stay on the device until ``collect`` downloads them."""
+        size = self.size
+        metas, origs, lbs = [], [], []
+        for img in pages:
+            im_h, im_w = img.shape[:2]
+            _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
+            orig = self._upload(img)  # one upload serves letterbox AND refine
+            origs.append(orig)
+            lbs.append(letterbox_device_u8(orig, size))
+            metas.append((im_h, im_w, dw, dh))
+        blks, mask, lines = run_net(self.model, torch.stack(lbs))
+        nms = [nms_single(b.to(torch.float32), self.conf_thresh, self.nms_thresh) for b in blks]
+        rows = torch.stack([r for r, _ in nms])
+        counts = torch.stack([c for _, c in nms])
+        masks_full = mask_to_u8(mask[:, 0])
+        boxes, scores, valid = db_decode_batch(lines[:, 0].to(torch.float32), self.db_thresh)
+
+        mask_devs = None
+        if self.refine_backend == "device" or self.mask_transfer == "packed":
+            # the page-resolution grey masks, cv2-exact: the device refine
+            # reads them, and packed mode ships them binarised at > 30
+            mask_devs = [
+                resize_cv2exact_u8(masks_full[i, : size - dh, : size - dw], (im_h, im_w))
+                for i, (im_h, im_w, dw, dh) in enumerate(metas)
+            ]
+        if self.mask_transfer == "packed":
+            masks_out = [packbits_rows(m > 30) for m in mask_devs]
+        else:
+            # crop to the batch's shared content region before the download
+            min_dh = min(m[3] for m in metas)
+            min_dw = min(m[2] for m in metas)
+            masks_out = masks_full[:, : size - min_dh, : size - min_dw]
+        outputs = (rows, counts, masks_out, boxes, scores, valid)
+        extras = (origs, mask_devs) if self.refine_backend == "device" else None
+        return outputs, metas, list(pages), extras
+
+    @torch.no_grad()
+    def collect(
+        self,
+        ticket,
+        refine_mode: int = C.REFINEMASK_INPAINT,
+        keep_undetected_mask: bool = False,
+    ) -> List[Tuple[np.ndarray, np.ndarray, list]]:
+        """Download one submitted batch, group each page's blocks and lines,
+        refine its mask; returns [(mask, mask_refined, blk_list)] in page
+        order."""
+        outputs, metas, pages, extras = ticket
+        size = self.size
+        rows, counts, masks_out, dboxes, dscores, dvalid = outputs
+        if isinstance(masks_out, list):
+            masks_out = [m.cpu().numpy() for m in masks_out]
+        else:
+            masks_out = masks_out.cpu().numpy()
+        rows, counts, dboxes, dscores, dvalid = (t.cpu().numpy() for t in (rows, counts, dboxes, dscores, dvalid))
+        staged = []
+        for i in range(len(pages)):
+            im_h, im_w, dw, dh = metas[i]
+            resize_ratio = (im_w / (size - dw), im_h / (size - dh))
+            blks = postprocess_yolo(rows[i], int(counts[i]), resize_ratio)
+            lines = scale_lines(dboxes[i], dscores[i], dvalid[i], size, self.box_thresh, resize_ratio)
+            if self.mask_transfer == "packed":
+                mask = unpack_rows(masks_out[i], im_w)
+            else:
+                mask = resize_bilinear_fast(masks_out[i][: size - dh, : size - dw], (im_h, im_w))
+            staged.append((mask, group_output(blks, lines, im_w, im_h, mask)))
+
+        if self.refine_backend == "device":
+            tickets = self._submit_refines(extras, pages, [bl for _, bl in staged], refine_mode)
+
+        out = []
+        for i, page in enumerate(pages):
+            mask, blk_list = staged[i]
+            if self.refine_backend == "device":
+                mask_refined = self._finish_refine(tickets[i])
+                if keep_undetected_mask:
+                    mask_refined = self._rescue_undetected(
+                        tickets[i], mask_refined, mask, blk_list, page.shape, refine_mode
+                    )
+            else:
+                mask_refined = refine_mask(page, mask, blk_list, refine_mode=refine_mode)
+                if keep_undetected_mask:
+                    mask_refined = refine_undetected_mask(page, mask, mask_refined, blk_list, refine_mode)
+            out.append((mask, mask_refined, blk_list))
+        return out
+
+    def _submit_refines(self, extras, pages, blk_lists, refine_mode):
+        """Refine the whole batch's block windows at page resolution, one
+        ``refine_pages`` call for each group of same-shaped pages, whose
+        windows share dispatches.  Returns one ticket per page."""
+        origs, mask_devs = extras
+        groups: dict = {}
+        for i, page in enumerate(pages):
+            groups.setdefault(page.shape[:2], []).append(i)
+        tickets = [None] * len(pages)
+        for shape, idxs in groups.items():
+            imgs = torch.stack([origs[i] for i in idxs])
+            masks = torch.stack([mask_devs[i] for i in idxs])
+            windows, pids = [], []
+            for gi, i in enumerate(idxs):
+                for blk in blk_lists[i]:
+                    windows.append(expand_textwindow(pages[i].shape, blk.xyxy, expand_r=16))
+                    pids.append(gi)
+            canvases = refine_pages(
+                imgs, masks, np.asarray(windows, np.int32).reshape(-1, 4), np.asarray(pids, np.int32),
+                refine_mode,
+            )
+            packed = packbits_rows(canvases > 0)
+            fetch_cache: dict = {}  # one download for the whole shape group
+            for gi, i in enumerate(idxs):
+                tickets[i] = (packed, canvases, imgs, masks, gi, shape, fetch_cache)
+        return tickets
+
+    def _finish_refine(self, ticket) -> np.ndarray:
+        packed, _canvases, _imgs, _masks, gi, shape, fetch_cache = ticket
+        if "host" not in fetch_cache:
+            fetch_cache["host"] = packed.cpu().numpy()
+        return unpack_rows(fetch_cache["host"][gi], shape[1])
+
+    def _rescue_undetected(self, ticket, refined, raw_mask, blk_list, img_shape, refine_mode):
+        """keep_undetected_mask for the batch path: the single page's rescue
+        at page resolution, merged into the refined mask on the host."""
+        _packed, canvases, imgs, masks, gi, shape, _fetch_cache = ticket
+        extra = _rescue_undetected_device(
+            imgs[gi], masks[gi], canvases[gi], refined, raw_mask, blk_list, img_shape, refine_mode
+        )
+        if extra is None:
+            return refined
+        extra_host = unpack_rows(packbits_rows(extra > 0).cpu().numpy(), shape[1])
+        return np.where(extra_host > 0, np.uint8(255), refined)
+
+    def process_batch(
+        self,
+        pages: Sequence[np.ndarray],
+        refine_mode: int = C.REFINEMASK_INPAINT,
+        keep_undetected_mask: bool = False,
+    ) -> List[Tuple[np.ndarray, np.ndarray, list]]:
+        """Run <= batch_size BGR pages; returns [(mask, mask_refined, blk_list)]."""
+        return self.collect(self.submit(pages), refine_mode, keep_undetected_mask)
+
+    def stream(
+        self,
+        images: Iterable[np.ndarray],
+        refine_mode: int = C.REFINEMASK_INPAINT,
+        keep_undetected_mask: bool = False,
+        prefetch: int = 2,
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray, list]]:
+        """Yield (mask, mask_refined, blk_list) for every page of ``images``,
+        in order.  A producer thread reads the source into batches, up to
+        ``prefetch`` ahead; up to ``prefetch`` batches are submitted before
+        the oldest is collected.  An error raised by the source reaches the
+        consumer after the pages read before it."""
+        q: queue.Queue = queue.Queue(maxsize=prefetch)
+        stop = object()
+        error: List[BaseException] = []
+
+        def producer():
+            chunk: List[np.ndarray] = []
+            try:
+                for img in images:
+                    chunk.append(img)
+                    if len(chunk) == self.batch_size:
+                        q.put(chunk)
+                        chunk = []
+                if chunk:
+                    q.put(chunk)
+            except BaseException as e:  # surface source errors in the consumer
+                error.append(e)
+            finally:
+                q.put(stop)
+
+        threading.Thread(target=producer, daemon=True).start()
+        in_flight: deque = deque()
+        depth = max(1, prefetch)
+        while True:
+            chunk = q.get()
+            if chunk is stop:
+                break
+            in_flight.append(self.submit(chunk))
+            if len(in_flight) > depth:
+                yield from self.collect(in_flight.popleft(), refine_mode, keep_undetected_mask)
+        while in_flight:
+            yield from self.collect(in_flight.popleft(), refine_mode, keep_undetected_mask)
+        if error:
+            raise error[0]

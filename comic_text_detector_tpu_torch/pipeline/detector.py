@@ -1,15 +1,19 @@
 """TextDetector — the end-to-end page -> (mask, mask_refined, blk_list) API.
 
-Counterpart of the JAX package's ``pipeline/detector.py::TextDetector`` in
-float32.  One device step runs upload, cv2-exact letterbox, the three-head
-net, NMS, the un-letterbox of the grey mask to page resolution (cv2-exact,
-the JAX package's ``_upsample_mask``) and the DB decode; the host then groups
-blocks and lines.  The mask is refined on the host (``refine_backend="host"``,
-the default) or on the device (``"device"``: ``ops/refine.py``, reading the
-page and the grey mask the device step already holds).  With
-``mask_transfer="packed"`` (device refine only) the raw mask comes back
-binarised at > 30 and packed 1 bit a pixel, as the refined mask always does
-with the device refine.
+Counterpart of the JAX package's ``pipeline/detector.py::TextDetector``, in
+float32 or (``half=True``) bf16.  One device step runs upload, cv2-exact
+letterbox, the three-head net, NMS, the grey mask's finalize (K6), the DB
+decode and, where the device refine or the packed transfer needs it, the
+un-letterbox of the grey mask to page resolution (cv2-exact, the JAX
+package's ``_upsample_mask``).  With ``mask_transfer="grey"`` the mask comes
+back at letterbox resolution and the host resizes it to the page as the JAX
+package does (``ops/resize.py::resize_bilinear_fast``).  The host then
+groups blocks and lines.  The mask is refined on the host
+(``refine_backend="host"``, the default) or on the device (``"device"``:
+``ops/refine.py``, reading the page and the page-resolution grey mask the
+device step already holds).  With ``mask_transfer="packed"`` (device refine
+only) the raw mask comes back binarised at > 30 and packed 1 bit a pixel, as
+the refined mask always does with the device refine.
 
 Colour contract: the input is a BGR uint8 page and the net reads BGR/255.
 """
@@ -26,9 +30,15 @@ from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
 from comic_text_detector_tpu_torch.models.detector import build_inference_model
 from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
+from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
 from comic_text_detector_tpu_torch.ops.nms import nms_single
 from comic_text_detector_tpu_torch.ops.refine import refine_page
-from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
+from comic_text_detector_tpu_torch.ops.resize import (
+    letterbox_device_u8,
+    letterbox_shape,
+    resize_bilinear_fast,
+    resize_cv2exact_u8,
+)
 from comic_text_detector_tpu_torch.postproc.textblock import TextBlock, group_output
 from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
 from comic_text_detector_tpu_torch.utils.device import resolve_device
@@ -50,6 +60,55 @@ def postprocess_yolo(rows: np.ndarray, count: int, resize_ratio):
     return det[:, 0:4].astype(np.int32), det[:, 5].astype(np.int32), np.round(det[:, 4], 3)
 
 
+def scale_lines(dboxes, dscores, dvalid, size: int, box_thresh: float, resize_ratio):
+    """Device DB rects of one page -> int32 line quads in page coordinates
+    (an empty list when none passes ``box_thresh``)."""
+    lines, scores = boxes_from_device_rects(dboxes, dscores, dvalid, size, size, size, size)
+    if len(scores):
+        lines = lines[scores > box_thresh]
+    if lines.size == 0:
+        return []
+    lines = lines.astype(np.float64)
+    lines[..., 0] *= resize_ratio[0]
+    lines[..., 1] *= resize_ratio[1]
+    return lines.astype(np.int32)
+
+
+def build_model(variables, model_path: Optional[str], cfg: Optional[dict], act: str, half: bool,
+                device: torch.device):
+    """The three-head net with its weights, on ``device``, computing in bf16
+    when ``half`` (float32 parameters either way)."""
+    path = None if model_path is None else str(model_path)
+    if variables is not None:
+        model_cfg = cfg or YOLOV5S_CFG
+        state = state_dict_from_jax(variables, model_cfg)
+    elif path is None:
+        raise ValueError("provide model_path or variables")
+    elif path.endswith((".onnx", ".stablehlo")):
+        raise NotImplementedError(
+            f"{path}: .onnx and .stablehlo models come with the ingestion/export slice of the port"
+        )
+    elif path.endswith(".npz"):
+        model_cfg = cfg or YOLOV5S_CFG
+        state = state_dict_from_jax(load_npz(path), model_cfg)
+    else:
+        state, ckpt_cfg = load_reference_pt(path)
+        model_cfg = cfg or ckpt_cfg or YOLOV5S_CFG
+    dtype = torch.bfloat16 if half else torch.float32
+    model = build_inference_model(model_cfg, act=act, dtype=dtype)
+    model.load_state_dict(state, strict=True)
+    return model.to(device)
+
+
+def run_net(model, lb_u8: torch.Tensor):
+    """(B, S, S, 3) uint8 letterboxed pages -> the net's float32 outputs.
+    The input is /255 in float32, then cast to the compute dtype by the
+    model; float32 convolutions run without TF32, as the JAX package's do."""
+    x = lb_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return model(x)
+
+
 class TextDetector:
     """Comic/manga page text detector.
 
@@ -59,6 +118,7 @@ class TextDetector:
         mask, mask_refined, blk_list = det(img_bgr)     # uint8 BGR page
 
     Runs on ``device="cuda"``; ``device="cpu"`` must be asked for.
+    ``half=True`` runs the net in bf16.
     """
 
     lang_list = C.LANG_LIST
@@ -79,8 +139,6 @@ class TextDetector:
         refine_backend: str = "host",
         mask_transfer: str = "grey",
     ):
-        if half:
-            raise NotImplementedError("half=True (bf16) comes with the batch-stream slice of the port")
         # packed mode needs the device refine: the host refine reads grey values
         if mask_transfer == "packed" and refine_backend != "device":
             raise ValueError("mask_transfer='packed' requires refine_backend='device'")
@@ -97,46 +155,31 @@ class TextDetector:
         self.box_thresh = C.DEFAULT_BOX_THRESH
         self.unclip_ratio = C.DEFAULT_UNCLIP_RATIO
 
-        path = None if model_path is None else str(model_path)
-        if variables is not None:
-            model_cfg = cfg or YOLOV5S_CFG
-            state = state_dict_from_jax(variables, model_cfg)
-        elif path is None:
-            raise ValueError("provide model_path or variables")
-        elif path.endswith((".onnx", ".stablehlo")):
-            raise NotImplementedError(
-                f"{path}: .onnx and .stablehlo models come with the ingestion/export slice of the port"
-            )
-        elif path.endswith(".npz"):
-            model_cfg = cfg or YOLOV5S_CFG
-            state = state_dict_from_jax(load_npz(path), model_cfg)
-        else:
-            state, ckpt_cfg = load_reference_pt(path)
-            model_cfg = cfg or ckpt_cfg or YOLOV5S_CFG
-        self.model = build_inference_model(model_cfg, act=act)
-        self.model.load_state_dict(state, strict=True)
-        self.model.to(self.device)
+        self.model = build_model(variables, model_path, cfg, act, half, self.device)
 
     @torch.no_grad()
     def _device_step(self, img: np.ndarray):
-        """Upload -> letterbox -> net -> NMS, grey-mask un-letterbox and DB
-        decode; every output stays on the device.  Also returns the uploaded
-        page and the page-resolution grey mask, which the device refine
-        reads; in packed mode the mask to download is ``up > 30`` packed."""
+        """Upload -> letterbox -> net -> NMS, mask finalize and DB decode;
+        every output stays on the device.  The mask to download is the
+        letterbox-resolution grey mask (``"grey"``) or the page-resolution
+        one binarised at > 30 and packed (``"packed"``).  Also returns the
+        uploaded page and the page-resolution grey mask (None unless the
+        device refine or the packed transfer needs it)."""
         size = self.input_size[0]
         im_h, im_w = img.shape[:2]
         _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
         img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        lb = letterbox_device_u8(img_dev, size)
-        x = lb.permute(2, 0, 1)[None].to(torch.float32) / 255.0
-        # float32 convolutions: cuDNN would otherwise run them in TF32
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            blks, mask, lines = self.model(x)
+        blks, mask, lines = run_net(self.model, letterbox_device_u8(img_dev, size)[None])
         rows, count = nms_single(blks[0].to(torch.float32), self.conf_thresh, self.nms_thresh)
-        mask_full = (mask[0, 0].to(torch.float32) * 255.0).to(torch.uint8)
-        mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
+        mask_full = mask_to_u8(mask[0, 0])
         boxes, scores, valid = db_decode_full_device(lines[0, 0].to(torch.float32), self.db_thresh)
-        mask_out = packbits_rows(mask_page > 30) if self.mask_transfer == "packed" else mask_page
+        mask_page = None
+        if self.refine_backend == "device" or self.mask_transfer == "packed":
+            mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
+        if self.mask_transfer == "packed":
+            mask_out = packbits_rows(mask_page > 30)
+        else:
+            mask_out = mask_full[: size - dh, : size - dw]
         return rows, count, mask_out, boxes, scores, valid, img_dev, mask_page
 
     def __call__(
@@ -151,25 +194,13 @@ class TextDetector:
         *host_out, img_dev, mask_dev = self._device_step(img)
         rows, count, mask_out, dboxes, dscores, dvalid = (t.cpu().numpy() for t in host_out)
         if self.mask_transfer == "packed":
-            mask = np.unpackbits(mask_out, axis=-1)[:, :im_w] * np.uint8(255)
+            mask = unpack_rows(mask_out, im_w)
         else:
-            mask = mask_out
+            mask = resize_bilinear_fast(mask_out, (im_h, im_w))
 
         resize_ratio = (im_w / (size - dw), im_h / (size - dh))
         blks = postprocess_yolo(rows, int(count), resize_ratio)
-
-        lines, scores = boxes_from_device_rects(dboxes, dscores, dvalid, size, size, size, size)
-        if len(scores):
-            keep = scores > self.box_thresh
-            lines, scores = lines[keep], scores[keep]
-        if lines.size == 0:
-            lines = []
-        else:
-            lines = lines.astype(np.float64)
-            lines[..., 0] *= resize_ratio[0]
-            lines[..., 1] *= resize_ratio[1]
-            lines = lines.astype(np.int32)
-
+        lines = scale_lines(dboxes, dscores, dvalid, size, self.box_thresh, resize_ratio)
         blk_list = group_output(blks, lines, im_w, im_h, mask)
         if self.refine_backend == "device":
             mask_refined = _refine_on_device(
@@ -182,10 +213,14 @@ class TextDetector:
         return mask, mask_refined, blk_list
 
 
+def unpack_rows(packed: np.ndarray, width: int) -> np.ndarray:
+    """1-bpp rows -> 0/255 uint8, cropped to ``width`` (packbits pads)."""
+    return (np.unpackbits(packed, axis=-1) * np.uint8(255))[..., :width]
+
+
 def _download_canvas(canvas: torch.Tensor, im_w: int) -> np.ndarray:
     """Binary canvas -> host 0/255 uint8, shipped 1 bit a pixel."""
-    packed = packbits_rows(canvas > 0).cpu().numpy()
-    return (np.unpackbits(packed, axis=-1) * np.uint8(255))[:, :im_w]
+    return unpack_rows(packbits_rows(canvas > 0).cpu().numpy(), im_w)
 
 
 def _refine_on_device(img_dev, mask_dev, blk_list, img_shape, refine_mode, undetected_mask=None) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Port's resize/letterbox, NMS and DB decode vs the JAX package.
 
-Tolerances: resize and letterbox are uint8 and bit-equal; NMS rows and
+Tolerances: resize and letterbox are uint8 and bit-equal (the Pillow-exact
+upscale against Pillow itself, imported inside its test); NMS rows and
 count are equal; the DB decode's ids and ``valid`` are equal and boxes
 within 1e-3 px.  Scores are means of the probability map over each
 component: against the JAX scatter-add route (the same order of f32 sums
@@ -68,6 +69,39 @@ def test_resize_bilinear_np_matches_jax():
     np.testing.assert_array_equal(trs.resize_bilinear_np(f, (64, 33)), jrs.resize_bilinear_np(f, (64, 33)))
     u = rng.integers(0, 256, (50, 70)).astype(np.uint8)
     np.testing.assert_array_equal(trs.resize_bilinear_np(u, (81, 90)), jrs.resize_bilinear_np(u, (81, 90)))
+
+
+# upscales: both axes, one axis equal (a single pass), tiny sources, the
+# grey mask's own letterbox-to-page shapes, and three channels
+_PIL_UPSCALES = [((171, 213), (384, 320), 0), ((256, 183), (1400, 1000), 0), ((174, 256), (1100, 1600), 0),
+                 ((50, 70), (50, 211), 0), ((50, 70), (163, 70), 0), ((1, 1), (4, 7), 0), ((3, 9), (4, 9), 0),
+                 ((37, 41), (38, 123), 3), ((100, 100), (101, 333), 3), ((2, 2), (513, 257), 0)]
+
+
+@pytest.mark.parametrize("in_hw,out_hw,channels", _PIL_UPSCALES)
+def test_resize_pil_bilinear_matches_pillow(in_hw, out_hw, channels):
+    from PIL import Image
+
+    rng = np.random.default_rng(sum(in_hw) + sum(out_hw))
+    img = rng.integers(0, 256, in_hw + ((channels,) if channels else ())).astype(np.uint8)
+    ref = np.asarray(Image.fromarray(img).resize((out_hw[1], out_hw[0]), Image.BILINEAR))
+    got = trs.resize_pil_bilinear_u8_np(img, out_hw)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("out_hw", [(120, 80), (240, 80), (120, 160), (180, 140)])
+def test_resize_bilinear_fast_routes_as_jax(out_hw):
+    """Downscale, mixed (one axis down) and identity take the cv2-exact
+    route, a two-axis upscale the Pillow one; all bit-equal to the JAX
+    function, and the non-Pillow routes to the cv2-exact resize."""
+    img = np.random.default_rng(5).integers(0, 256, (180, 140)).astype(np.uint8)
+    got = trs.resize_bilinear_fast(img, out_hw)
+    np.testing.assert_array_equal(got, jrs.resize_bilinear_fast(img, out_hw))
+    if out_hw[0] < 180 or out_hw[1] < 140:
+        np.testing.assert_array_equal(got, trs.resize_cv2exact_u8_np(img, out_hw))
+    with pytest.raises(ValueError, match="upscales only"):
+        trs.resize_pil_bilinear_u8_np(img, (179, 300))
 
 
 def _tied_preds(seed: int, n: int = 700) -> np.ndarray:
