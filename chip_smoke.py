@@ -38,7 +38,27 @@ before it starts so a stall shows where it stopped:
    a batch of 4 with the same block counts and refined IoU >= 0.99 in
    float32 and >= 0.98 in bf16 (bf16 convolutions round differently at
    another batch size); and a source that raises mid-stream reaching the
-   consumer.
+   consumer;
+9. K4 (the connected-components row and column sweeps) bit for bit against
+   its plain version: the new path's first 1536x1536 DB bitmap, a 1536x1536
+   serpentine, 45% noise, all-zero, all-one, 1037x1531 and a
+   (4, 1536, 1536) stack, with random labels under the background; then
+   ``connected_components`` on the K4, K2 and plain routes, with the K4
+   fixpoint's rounds;
+10. K5 (3x3 erode, dilate and cross erode) bit for bit against its plain
+   version, uint8 and float32, at 1536x1536, 1x4097, 4097x1 and 1037x1531;
+11. the path at input 1536: ``BatchTextDetector(..., input_size=1536,
+   half=True, refine_backend="device", mask_transfer="packed").stream`` over
+   8 high-resolution scans (2150x1500, 2048x1448, 1500x2150), whose DB
+   decode labels through K4, with every launch count set to 0 just before
+   and read just after; pages/s, launches per page and the device's idle
+   share; ``TextDetector(..., input_size=1536)`` with the host refine and
+   with the device refine + packed; repeat runs bit-identical; the batch's
+   DB decode bit-equal through K4, K2 and the plain route;
+12. ``SegDetectorRepresenter`` in quad and polygon mode on that net's DB
+   maps, the card against the port's CPU route; then K4 and K5 timed at the
+   path's shapes beside their bounds, their plain versions and, where one
+   exists, a single PyTorch call computing the same function.
 
 Prints ``{"kernels": [...]}`` on a line of its own, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -146,6 +166,23 @@ def cuda_ms_cycle(fn, args, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def page_time_of(detector, pages) -> float:
+    """ms per page of a single-page detector over ``pages``, after one
+    warm-up pass, two passes timed."""
+    import torch
+
+    for p in pages:
+        detector(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 2
+    for _ in range(reps):
+        for p in pages:
+            detector(p)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (reps * len(pages))
+
+
 def mask_iou(a, b) -> float:
     import numpy as np
 
@@ -207,6 +244,66 @@ def check_k6_edges(dev) -> dict:
     return errs
 
 
+def check_k4(dev, cases: dict) -> int:
+    """Both K4 sweeps against their plain versions on each (N, H, W) or
+    (H, W) mask of ``cases``, with random int32 labels everywhere (under
+    the background too); then ``connected_components`` on the K4, K2 and
+    plain routes.  Returns the max abs error (0, or it raises)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import cc as CC
+    from comic_text_detector_tpu_torch.ops import scan_kernels as K4
+
+    rng = np.random.default_rng(5)
+    for name, m in cases.items():
+        m = m.to(dev)
+        lab = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, tuple(m.shape), dtype=np.int64).astype(np.int32))
+        lab = lab.to(dev)
+        for kernel, plain in ((K4.cc_row_sweep, K4.cc_row_sweep_plain), (K4.cc_col_sweep, K4.cc_col_sweep_plain)):
+            got, ref = kernel(lab, m), plain(lab, m)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 {kernel.__name__} differs from its plain version on {name}: "
+                                     f"{int((got != ref).sum())} pixels")
+        t0 = time.perf_counter()
+        k4 = CC.connected_components(m, 8, "pallas")
+        torch.cuda.synchronize()
+        k4_s, rounds = time.perf_counter() - t0, CC.connected_components.rounds
+        k2, plain_cc = CC.connected_components(m, 8, "vmem"), CC.connected_components(m, 8, "xla")
+        torch.cuda.synchronize()
+        if not (torch.equal(k4, plain_cc) and torch.equal(k2, plain_cc)):
+            raise AssertionError(f"connected_components differs between routes on {name}: K4 {int((k4 != plain_cc).sum())}, "
+                                 f"K2 {int((k2 != plain_cc).sum())} pixels")
+        phase(f"  {name} {tuple(m.shape)}: sweeps bit-equal, connected_components equal on K4, K2 and plain "
+              f"({rounds} K4 rounds, {k4_s * 1e3:.1f} ms)")
+    return 0
+
+
+def check_k5(dev) -> int:
+    """The three K5 functions against their plain versions, uint8 and
+    float32.  Returns the max abs error (0, or it raises)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import morph as K5
+
+    rng = np.random.default_rng(6)
+    for shape in ((1536, 1536), (1, 4097), (4097, 1), (1037, 1531)):
+        for dtype in ("uint8", "float32"):
+            x_np = (rng.integers(0, 256, shape, dtype=np.uint8) if dtype == "uint8"
+                    else (rng.standard_normal(shape) * 100).astype(np.float32))
+            x = torch.from_numpy(x_np).to(dev)
+            for name in ("erode3x3", "dilate3x3", "erode3x3_ellipse"):
+                got, ref = getattr(K5, name)(x), getattr(K5, name + "_plain")(x)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K5 {name} differs from its plain version on {shape} {dtype}: "
+                                         f"{int((got != ref).sum())} pixels")
+        phase(f"  K5 erode, dilate, cross erode bit-equal at {shape}, uint8 and float32")
+    return 0
+
+
 def main() -> None:
     import torch
 
@@ -219,8 +316,10 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import cc_kernels as K
     from comic_text_detector_tpu_torch.ops import cuda_build
     from comic_text_detector_tpu_torch.ops import finalize as K6
+    from comic_text_detector_tpu_torch.ops import morph as K5
+    from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/8 device")
+    phase("1/12 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -231,13 +330,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/8 build kernels (nvcc, one per source, in parallel)")
+    phase("2/12 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/8 kernels vs plain versions, bit for bit")
+    phase("3/12 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -302,11 +401,12 @@ def main() -> None:
     k6_edge_errs = check_k6_edges(dev)
     phase("  K6 mask_to_u8 and binarize bit-equal on edge values, odd and unaligned shapes")
 
-    phase("4/8 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/12 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
     from comic_text_detector_tpu_torch.pipeline import TextDetector
+    from comic_text_detector_tpu_torch.pipeline.detector import run_net
 
     det = TextDetector(WEIGHTS, input_size=1024)
     pages = [
@@ -315,7 +415,10 @@ def main() -> None:
         synthetic_page(rng, 1400, 1000, colour=True),
     ]
     counters = {"K1": K.cc_ids_fused, "K2": K.cc_windows_local, "K3": K.min_prop_windows_local,
-                "K6 mask_to_u8": K6.mask_to_u8, "K6 binarize": K6.binarize}
+                "K6 mask_to_u8": K6.mask_to_u8, "K6 binarize": K6.binarize,
+                "K4 row": K4.cc_row_sweep, "K4 col": K4.cc_col_sweep, "K5 erode": K5.erode3x3,
+                "K5 dilate": K5.dilate3x3, "K5 cross": K5.erode3x3_ellipse}
+    path_1024 = ["K1", "K2", "K3", "K6 mask_to_u8", "K6 binarize"]
 
     def drive(run, names):
         """Run a path with every launch count set to 0 just before and read
@@ -340,7 +443,7 @@ def main() -> None:
 
     phase("  device refine, packed masks")
     det_dev = TextDetector(WEIGHTS, input_size=1024, refine_backend="device", mask_transfer="packed")
-    results_dev, launches_dev = drive(lambda: [det_dev(p) for p in pages], list(counters))
+    results_dev, launches_dev = drive(lambda: [det_dev(p) for p in pages], path_1024)
     phase(f"  launches on the device-refine path: {launches_dev}")
     for p, (mask, refined, blks) in zip(pages, results_dev):
         if mask.shape != p.shape[:2] or refined.shape != p.shape[:2] or mask.dtype != np.uint8:
@@ -407,20 +510,8 @@ def main() -> None:
     phase(f"  K1 on page 0's candidates {tuple(stack.shape)} ({len(sel)} windows of bucket {bh}x{bw}): "
           f"{k1_ms:.4f} ms, plain {k1_plain:.2f} ms, {int(k1_out.max())} max id")
 
-    def page_time(detector) -> float:
-        for p in pages:  # warm-up
-            detector(p)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reps = 2
-        for _ in range(reps):
-            for p in pages:
-                detector(p)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / (reps * len(pages))
-
-    page_ms = page_time(det)
-    page_ms_dev = page_time(det_dev)
+    page_ms = page_time_of(det, pages)
+    page_ms_dev = page_time_of(det_dev, pages)
     step_ms = cuda_ms(lambda: det._device_step(pages[0]), 5)
     refine_ms = cuda_ms(lambda: R.refine_page(img0, mask0, windows, 0), 5)
     # each stage of that dispatch alone (the steps of ops/refine.py::_refine_windows)
@@ -456,7 +547,8 @@ def main() -> None:
         stages = {
             "upload": cuda_ms(lambda: torch.from_numpy(pages[0]).to(dev), 5),
             "letterbox": cuda_ms(lambda: letterbox_device_u8(img_dev, 1024), 5),
-            "net": cuda_ms(lambda: det.model(x), 5),
+            "net": cuda_ms(lambda: det.model(x), 5),  # cuDNN's default algorithms
+            "net_deterministic": cuda_ms(lambda: run_net(det.model, lb[None]), 5),  # as the pipelines run it
             "nms": cuda_ms(lambda: nms_single(blks_t[0], det.conf_thresh, det.nms_thresh), 5),
             "mask_unletterbox": cuda_ms(
                 lambda: resize_cv2exact_u8(mask_u8[: 1024 - dh0, : 1024 - dw0], (h0, w0)), 5),
@@ -464,7 +556,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/8 output check: card vs the port's CPU route")
+    phase("5/12 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -502,10 +594,9 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/8 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/12 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
-    from comic_text_detector_tpu_torch.pipeline.detector import run_net
     from comic_text_detector_tpu_torch.weights import load_npz
 
     variables = load_npz(WEIGHTS)
@@ -518,7 +609,7 @@ def main() -> None:
     list(bdet.stream(iter(warm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out16, launches_b = drive(lambda: list(bdet.stream(iter(spages))), list(counters))
+    out16, launches_b = drive(lambda: list(bdet.stream(iter(spages))), path_1024)
     stream_s = time.perf_counter() - t0
     per_page_b = {k: v / len(spages) for k, v in launches_b.items()}
     if len(out16) != len(spages):
@@ -552,7 +643,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/8 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/12 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -573,7 +664,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/8 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/12 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -669,6 +760,11 @@ def main() -> None:
     phase(f"  K2 / K3 on the batch's DB bitmaps {tuple(bitmaps.shape)}: {k2b_ms:.4f} / {k3b_ms:.4f} ms "
           f"(plain {k2b_plain:.2f} / {k3b_plain:.2f} ms)")
 
+    def net_any_algo(model, lb_u8):
+        x = lb_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+            return model(x)
+
     # the batch's stages alone, on the first 4 pages' tensors (CUDA events)
     with torch.no_grad():
         batch_stages = {
@@ -677,6 +773,9 @@ def main() -> None:
                                              for p in spages[:4]], 5),
             "net_bf16_b4": cuda_ms(lambda: run_net(bdet.model, lbs), 5),
             "net_f32_b4": cuda_ms(lambda: run_net(bdet32.model, lbs), 5),
+            # the same net without run_net's restriction to deterministic cuDNN algorithms
+            "net_f32_b4_any_algo": cuda_ms(lambda: net_any_algo(bdet32.model, lbs), 5),
+            "net_bf16_b4_any_algo": cuda_ms(lambda: net_any_algo(bdet.model, lbs), 5),
             "nms_x4": cuda_ms(lambda: [nms_single(b, bdet.conf_thresh, bdet.nms_thresh) for b in blks_b], 5),
             "mask_finalize_k6": cuda_ms(lambda: K6.mask_to_u8(mask_stack), 5),
             "db_decode_b4": cuda_ms(lambda: db_decode_batch(shrink0, 0.3), 5),
@@ -689,6 +788,187 @@ def main() -> None:
         torch.cuda.synchronize()
         batch_stages["process_batch_b4_host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
     phase("  batch stages (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in batch_stages.items()))
+
+    # ------------------------------------------------------------------
+    # input 1536: the DB decode's label route through K4
+    # ------------------------------------------------------------------
+    from comic_text_detector_tpu_torch.ops import cc as CC
+    from comic_text_detector_tpu_torch.ops import db_decode as DB
+    from comic_text_detector_tpu_torch.postproc.db_rep import SegDetectorRepresenter
+
+    big = 1536
+    hshapes = [(2150, 1500), (2048, 1448), (1500, 2150)]
+    hrng = np.random.default_rng(15)
+    hwarm = [synthetic_page(hrng, *hshapes[i % 3], colour=i % 2 == 0) for i in range(4)]
+    hpages = [synthetic_page(hrng, *hshapes[i % 3], colour=i % 2 == 1) for i in range(8)]
+    bdet_big = BatchTextDetector(variables, half=True, **dict(bkw, input_size=big))
+    with torch.no_grad():
+        lbs_big = torch.stack([letterbox_device_u8(torch.from_numpy(p).to(dev), big) for p in hpages[:4]])
+        _, _, lines_big = run_net(bdet_big.model, lbs_big)
+        shrink_big = lines_big[:, 0].to(torch.float32).contiguous()
+    bitmaps_big = K6.binarize(shrink_big, bdet_big.db_thresh)
+    if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
+        raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
+
+    phase("9/12 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
+    odd = np.zeros((1037, 1531), np.uint8)
+    odd[::3] = 1
+    odd[np.random.default_rng(17).random(odd.shape) < 0.3] = 1
+    k4_cases = {
+        "DB bitmap of the 1536 path, page 0": bitmaps_big[0].cpu(),
+        "serpentine": torch.from_numpy(serpentine(big)),
+        "noise 45%": noise,
+        "all-zero": torch.zeros((big, big), dtype=torch.uint8),
+        "all-one": torch.ones((big, big), dtype=torch.uint8),
+        "odd shape": torch.from_numpy(odd),
+        "the batch's DB bitmap stack": bitmaps_big.cpu(),
+    }
+    k4_err = check_k4(dev, k4_cases)
+
+    phase("10/12 K5 vs its plain version, bit for bit")
+    k5_err = check_k5(dev)
+
+    phase(f"11/12 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    list(bdet_big.stream(iter(hwarm)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_big, launches_big = drive(lambda: list(bdet_big.stream(iter(hpages))),
+                                  ["K1", "K4 row", "K4 col", "K6 mask_to_u8", "K6 binarize"])
+    big_s = time.perf_counter() - t0
+    per_page_big = {k: v / len(hpages) for k, v in launches_big.items()}
+    for p, (mask, refined, blks) in zip(hpages, out_big):
+        if mask.shape != p.shape[:2] or refined.shape != p.shape[:2] or mask.dtype != np.uint8:
+            raise AssertionError(f"mask shapes {mask.shape} {refined.shape} for page {p.shape}")
+        if not set(np.unique(mask)) <= {0, 255} or not set(np.unique(refined)) <= {0, 255}:
+            raise AssertionError("packed-mode masks are not 0/255")
+    blocks_big = [len(b) for _, _, b in out_big]
+    lines_per_page = [sum(len(x.lines) for x in b) for _, _, b in out_big]
+    if sum(blocks_big) == 0 or sum(lines_per_page) == 0:
+        raise AssertionError(f"the {big} stream found no text: blocks {blocks_big}, lines {lines_per_page}")
+    phase(f"  bf16 stream at {big}: {len(hpages) / big_s:.3f} pages/s, {big_s * 1e3 / len(hpages):.2f} ms/page; "
+          f"blocks per page {blocks_big}, lines per page {lines_per_page}")
+    phase(f"  launches per page: {per_page_big}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        list(bdet_big.stream(iter(hpages)))
+        torch.cuda.synchronize()
+    kernel_us_big = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_big = sum(us for us, _, _ in kernel_us_big) / 1e3
+    idle_big = 1.0 - busy_big / (big_s * 1e3) if busy_big > 0 else None
+    top_big = [(k[:60], n, round(us / 1e3, 3)) for us, n, k in kernel_us_big[:8]]
+    phase(f"  device busy {busy_big / len(hpages):.2f} ms/page of {big_s * 1e3 / len(hpages):.2f}: idle share "
+          f"{'not measured (no device time in the trace)' if idle_big is None else f'{idle_big:.3f}'}; "
+          f"top kernels (name, launches, ms): {top_big}")
+
+    out_big2 = list(bdet_big.stream(iter(hpages)))
+    diff = [i for i, (x, y) in enumerate(zip(out_big, out_big2)) if not same_outputs(x, y)]
+    if diff:
+        raise AssertionError(f"repeat stream at {big} differs on pages {diff}")
+    single_big = {}
+    for name, kw in (("host refine", {}), ("device refine + packed", dict(refine_backend="device",
+                                                                           mask_transfer="packed"))):
+        det_big = TextDetector(WEIGHTS, input_size=big, **kw)
+        res, launches_single = drive(lambda: [det_big(hpages[0]) for _ in range(2)],
+                                     ["K4 row", "K4 col", "K6 mask_to_u8", "K6 binarize"])
+        if not same_outputs(*res):
+            (m1, r1, b1), (m2, r2, b2) = res
+            raise AssertionError(f"TextDetector at {big} ({name}) differs between two calls: mask "
+                                 f"{int((m1 != m2).sum())} px, refined {int((r1 != r2).sum())} px, "
+                                 f"{len(b1)} vs {len(b2)} blocks")
+        mask, refined, blks = res[0]
+        if mask.shape != hpages[0].shape[:2] or not blks:
+            raise AssertionError(f"TextDetector at {big} ({name}): mask {mask.shape}, {len(blks)} blocks")
+        single_big[name] = {"blocks": len(blks), "lines": sum(len(b.lines) for b in blks),
+                            "launches_per_call": {k: v / 2 for k, v in launches_single.items()},
+                            "ms_per_page": page_time_of(det_big, hpages[:3])}
+        phase(f"  TextDetector at {big}, {name}: {single_big[name]}")
+
+    decoded = {}
+    with torch.no_grad():
+        for backend in ("pallas", "vmem", "xla"):
+            labels = CC.connected_components(bitmaps_big, 8, backend)
+            decoded[backend] = [DB._decode_labeled(shrink_big[i], labels[i], 256, 90, 8192, False) for i in range(4)]
+        auto = DB.db_decode_batch(shrink_big, bdet_big.db_thresh)
+    torch.cuda.synchronize()
+    for backend in ("vmem", "xla"):
+        for a, b in zip(decoded["pallas"], decoded[backend]):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"the DB decode at {big} differs between K4 and the {backend} route")
+    if not all(torch.equal(torch.stack([d[j] for d in decoded["pallas"]]), auto[j]) for j in range(3)):
+        raise AssertionError(f"db_decode_batch at {big} differs from its K4 route")
+    phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
+          f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
+
+    phase("12/12 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    # box_thresh 0.3: the net's line scores on these synthetic scans are about
+    # 0.4, under the default 0.7, and polygon mode filters by it
+    rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
+    rep_cpu = SegDetectorRepresenter(box_thresh=0.3, device="cpu")
+    lines_f32 = lines_big.to(torch.float32)
+    rep_summary = {}
+    for polygon in (False, True):
+        t0 = time.perf_counter()
+        bg_, sg_ = rep_gpu(None, lines_f32, is_output_polygon=polygon)
+        rep_ms = (time.perf_counter() - t0) * 1e3 / 4
+        bc_, sc_ = rep_cpu(None, lines_f32.cpu().numpy(), is_output_polygon=polygon)
+        for i in range(4):
+            if len(bg_[i]) != len(bc_[i]) or any(not np.array_equal(a, b) for a, b in zip(bg_[i], bc_[i])):
+                raise AssertionError(f"SegDetectorRepresenter (polygon={polygon}) page {i}: card and CPU differ")
+            if len(sg_[i]) and np.abs(np.asarray(sg_[i]) - np.asarray(sc_[i])).max() > 1e-5:
+                raise AssertionError(f"SegDetectorRepresenter (polygon={polygon}) page {i}: scores differ by more than 1e-5")
+        mode = "polygon" if polygon else "quad"
+        if sum(len(b) for b in bg_) == 0:
+            raise AssertionError(f"SegDetectorRepresenter ({mode} mode) found nothing on 4 pages")
+        rep_summary[mode] = {"per_page": [len(b) for b in bg_], "ms_per_page": rep_ms}
+        phase(f"  {mode} mode: {[len(b) for b in bg_]} per page, equal on card and CPU (scores within 1e-5), "
+              f"{rep_ms:.1f} ms/page on the card")
+
+    # K4 per launch at the path's (4, 1536, 1536), on the labels of its second round
+    lin = torch.arange(big * big, dtype=torch.int32, device=dev).view(1, big, big)
+    lab0 = torch.where(bitmaps_big != 0, lin, K.CC_BIG).contiguous()
+    k4_out = torch.empty_like(lab0)
+    k4_args = [(lab0.clone(), bitmaps_big.clone(), k4_out) for _ in range(2)]  # 2 x 47 MB: more than the L2
+    k4r_ms = cuda_ms_cycle(K4.launch_row_sweep, k4_args, 100)
+    k4c_ms = cuda_ms_cycle(K4.launch_col_sweep, k4_args, 100)
+    k4r_plain = cuda_ms(lambda: K4.cc_row_sweep_plain(lab0, bitmaps_big), 5)
+    k4c_plain = cuda_ms(lambda: K4.cc_col_sweep_plain(lab0, bitmaps_big), 5)
+    k4_bytes = bitmaps_big.numel() * (4 + 1 + 4)  # labels and mask in, labels out
+    cc_k4_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "pallas"), 3)
+    k4_rounds = CC.connected_components.rounds
+    cc_k2_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "vmem"), 3)
+    cc_plain_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "xla"), 3)
+    phase(f"  K4 on {tuple(bitmaps_big.shape)}: row {k4r_ms:.4f} ms (plain {k4r_plain:.3f}), column {k4c_ms:.4f} ms "
+          f"(plain {k4c_plain:.3f}), bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none")
+    phase(f"  connected_components on the batch's bitmaps: K4 route {cc_k4_ms:.2f} ms ({k4_rounds} rounds), "
+          f"K2 route {cc_k2_ms:.2f} ms, plain {cc_plain_ms:.2f} ms")
+
+    # K5 at 1536 x 1536, uint8 and float32; the library call for dilate is one
+    # max_pool2d on a replicate-padded float32 input, for erode one on the
+    # negated padded input (the same minimum, negated); the cross has none
+    import torch.nn.functional as F
+
+    k5 = {}
+    x8 = torch.from_numpy(np.random.default_rng(18).integers(0, 256, (big, big), dtype=np.uint8)).to(dev)
+    for dtype, x in (("uint8", x8), ("float32", x8.float())):
+        outs = torch.empty_like(x)
+        xs = [(x.clone(), outs) for _ in range(8)]  # 8 x 9.4 MB in float32: more than the L2
+        for op, name in ((0, "erode3x3"), (1, "dilate3x3"), (2, "erode3x3_ellipse")):
+            k5[(name, dtype)] = {
+                "ms": cuda_ms_cycle(lambda a, o, op=op: K5.launch_morph(a, o, op), xs, 200),
+                "plain_ms": cuda_ms(lambda: getattr(K5, name + "_plain")(x), 20),
+                "bound_ms": x.numel() * x.element_size() * 2 / H100_BYTES_PER_S * 1e3,
+            }
+    xf = x8.float()
+    padded = F.pad(xf[None, None], (1, 1, 1, 1), mode="replicate")
+    neg_padded = -padded
+    k5[("dilate3x3", "float32")]["library_ms"] = cuda_ms(lambda: F.max_pool2d(padded, 3, 1), 200)
+    k5[("erode3x3", "float32")]["library_ms"] = cuda_ms(lambda: F.max_pool2d(neg_padded, 3, 1), 200)
+    if not torch.equal(F.max_pool2d(padded, 3, 1)[0, 0], K5.dilate3x3(xf)):
+        raise AssertionError("max_pool2d on the replicate-padded input is not dilate3x3")
+    phase("  K5 at 1536x1536 (ms): " + ", ".join(
+        f"{n} {d} {v['ms']:.4f} (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}"
+        + (f", library {v['library_ms']:.4f})" if "library_ms" in v else ")") for (n, d), v in k5.items()))
 
     kernels = [
         {
@@ -730,7 +1010,32 @@ def main() -> None:
             "ms": k6b_ms, "plain_ms": k6b_plain, "bound_ms": k6_bytes / H100_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": k6b_lib,
         },
+        {
+            "name": "cc_row_sweep (K4 rows)", "route": "cuda",
+            "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
+            "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
+            "launches": launches_big["K4 row"], "max_abs_err": k4_err, "ms": k4r_ms, "plain_ms": k4r_plain,
+            "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "cc_col_sweep (K4 columns)", "route": "cuda",
+            "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
+            "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
+            "launches": launches_big["K4 col"], "max_abs_err": k4_err, "ms": k4c_ms, "plain_ms": k4c_plain,
+            "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+        },
     ]
+    # K5 has no caller on any path: its launches on the path are 0
+    for name, line, key in (("erode3x3", 37, "K5 erode"), ("dilate3x3", 37, "K5 dilate"),
+                            ("erode3x3_ellipse", 71, "K5 cross")):
+        v = k5[(name, "float32")]
+        kernels.append({
+            "name": f"{name} (K5, float32 1536x1536)", "route": "cuda",
+            "source": "comic_text_detector_tpu_torch/csrc/morph.cu",
+            "replaces": f"comic_text_detector_tpu/ops/pallas_kernels.py:{line}",
+            "launches": launches_big[key], "max_abs_err": k5_err, "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": "bytes", "library_ms": v.get("library_ms"),
+        })
     print(json.dumps({"stream_pages_per_s_bf16": len(spages) / stream_s,
                       "stream_ms_per_page_bf16": stream_s * 1e3 / len(spages),
                       "stream_pages_per_s_f32": len(spages) / stream32_s,
@@ -749,6 +1054,16 @@ def main() -> None:
                       "k1_launches_per_page": launches_dev["K1"] / len(pages),
                       "launches_device_refine": launches_dev, "pages": [list(p.shape) for p in pages],
                       "card": smi}), flush=True)
+    print(json.dumps({"input": big, "stream_pages_per_s_bf16": len(hpages) / big_s,
+                      "stream_ms_per_page_bf16": big_s * 1e3 / len(hpages),
+                      "stream_launches_per_page": per_page_big, "stream_blocks": blocks_big,
+                      "stream_lines": lines_per_page,
+                      "stream_device_busy_ms_per_page": busy_big / len(hpages), "stream_idle_share": idle_big,
+                      "stream_top_kernels": top_big, "single_page": single_big, "representer": rep_summary,
+                      "k4_ms": [k4r_ms, k4c_ms], "k4_plain_ms": [k4r_plain, k4c_plain],
+                      "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds},
+                      "k5_ms": {f"{n} {d}": v for (n, d), v in k5.items()},
+                      "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -42,6 +42,7 @@ IDS_MAX_ELEMS = 1024 * 1024  # the split route's largest window (pallas_kernels.
 
 # W, NW, N, NE: each 8-neighbour pair is visited once, from its later pixel
 _BACK_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
+_BACK_NEIGHBOURS_4 = ((0, -1), (-1, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -78,14 +79,14 @@ def _check_windows(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _root_index_plain(fg: torch.Tensor) -> torch.Tensor:
+def _root_index_plain(fg: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """(N, H, W) bool -> int64 (N*H*W,) where every foreground pixel holds
-    its component's minimum flat index (hook-to-min union-find rounds, each
-    followed by full pointer jumping)."""
+    its 8- (or 4-) connected component's minimum flat index (hook-to-min
+    union-find rounds, each followed by full pointer jumping)."""
     n, h, w = fg.shape
     flat = torch.arange(n * h * w, device=fg.device).view(n, h, w)
     src, dst = [], []
-    for dy, dx in _BACK_NEIGHBOURS:
+    for dy, dx in _BACK_NEIGHBOURS if connectivity == 8 else _BACK_NEIGHBOURS_4:
         rows = slice(1, h) if dy else slice(0, h)
         rows_q = slice(0, h - 1) if dy else slice(0, h)
         cols = slice(max(-dx, 0), w - max(dx, 0))
@@ -111,12 +112,13 @@ def _root_index_plain(fg: torch.Tensor) -> torch.Tensor:
     raise RuntimeError("connected components did not converge")
 
 
-def cc_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
+def cc_windows_local_plain(masks_u8: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """Plain version of K2: (N, H, W) uint8 -> int32 component-min local
-    linear index on foreground, 2**30 on background."""
+    linear index on foreground, 2**30 on background.  ``connectivity=4``
+    links only the 4-neighbours (K2 itself is 8-connected)."""
     n, h, w = masks_u8.shape
     fg = masks_u8 != 0
-    root = _root_index_plain(fg).view(n, h, w)
+    root = _root_index_plain(fg, connectivity).view(n, h, w)
     base = (torch.arange(n, device=fg.device) * (h * w)).view(n, 1, 1)
     return torch.where(fg, root - base, CC_BIG).to(torch.int32)
 

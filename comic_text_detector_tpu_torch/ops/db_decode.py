@@ -1,22 +1,35 @@
-"""DB (differentiable binarization) shrink map -> rotated text-line boxes.
+"""DB (differentiable binarization) shrink map -> text-line boxes.
 
-Counterpart of the JAX package's ``ops/db_decode.py`` on its rank-ids
-contract (``db_decode_full_device(..., rank_ids=True)``): the map is
-binarized by K6 (``ops/finalize.py::binarize``), its components come as
-dense raster-order ids from the CC kernels
-(``ops/cc_kernels.py::cc_ids_windows_local``, K2 -> cumsum -> K3); a
-sorted table of boundary pixels feeds a 90-angle min-area-rect scan.  The
-component areas are integer scatter-adds and the probability sums a
-segmented reduction over the pixels sorted by id, so neither depends on the
-order of the card's atomics: repeated runs give the same bits.
-``db_decode_batch`` binarizes and labels a stack of maps with one launch of
-each kernel; ``boxes_from_device_rects`` is the host finisher.
+Counterpart of the JAX package's ``ops/db_decode.py``.  The map is
+binarized by K6 (``ops/finalize.py::binarize``) and its components are
+labelled on the device by one of two routes, as in the JAX package:
+
+* rank ids (maps of at most 1024x1024 elements by default): dense
+  raster-order ids straight from the CC kernels
+  (``ops/cc_kernels.py::cc_ids_windows_local``, K2 -> cumsum -> K3);
+* labels (larger maps, or ``rank_ids=False``): raw labels from
+  ``ops/cc.py::connected_components`` (K4 on the card above 1M elements),
+  then dense ids from the first appearances of each label in the sorted
+  boundary table.
+
+A sorted table of boundary pixels feeds a 90-angle min-area-rect scan.  The
+component areas and probability sums are segmented reductions over the
+pixels sorted by id (``ops/cc.py::component_sums``), so neither depends on
+the order of the card's atomics: repeated runs give the same bits.
+``db_decode_batch`` binarizes and labels a stack of maps with one call of
+each; ``boxes_from_device_rects`` is the host finisher.
+
+The host half of ``SegDetectorRepresenter`` is here too:
+``db_device_decode`` (labels and component statistics on the device),
+``boxes_from_stats`` (quads, NumPy only: the port does not load the JAX
+package's native extension) and ``polygons_from_stats`` (boundary trace,
+Douglas-Peucker, round-join offset).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +37,22 @@ import torch.nn.functional as F
 
 from comic_text_detector_tpu_torch.constants import MAX_DB_COMPONENTS
 from comic_text_detector_tpu_torch.ops import geometry as geo
-from comic_text_detector_tpu_torch.ops.cc_kernels import cc_ids_windows_local
+from comic_text_detector_tpu_torch.ops.cc import (
+    ComponentStats,
+    component_stats,
+    component_sums,
+    connected_components,
+)
+from comic_text_detector_tpu_torch.ops.cc_kernels import IDS_MAX_ELEMS, cc_ids_windows_local
 from comic_text_detector_tpu_torch.ops.finalize import binarize
 
-_REST_SEGMENTS = 1024  # short segments that share the pixels outside every counted id
+
+def db_device_decode(shrink_map: torch.Tensor, thresh: float, capacity: int = MAX_DB_COMPONENTS) -> ComponentStats:
+    """Device half: an (H, W) probability map -> its components' statistics
+    (and the compact label map)."""
+    bitmap = binarize(shrink_map.to(torch.float32), thresh)
+    labels = connected_components(bitmap, 8)
+    return component_stats(labels, shrink_map, capacity)
 
 
 def _segment_reduce(values: torch.Tensor, ids: torch.Tensor, n: int, reduce: str) -> torch.Tensor:
@@ -38,47 +63,26 @@ def _segment_reduce(values: torch.Tensor, ids: torch.Tensor, n: int, reduce: str
     return out.scatter_reduce_(0, ids[:, None].expand_as(values), values, reduce)
 
 
-def _component_sums(values: torch.Tensor, labels: torch.Tensor, capacity: int):
-    """(area int64 (C,), probability sum float32 (C,)) of ids 1..C-1; id 0
-    holds 0.  The areas are the runs of each id among the pixels stably
-    sorted by id, and the sums a segmented reduction over those runs: no
-    atomics, so the card gives the same bits on every run, and on the CPU
-    each sum is the sequential float32 sum in raster order, the order of
-    the JAX package's scatter-add.  Pixels of no counted id (background,
-    ids >= C) fill ``_REST_SEGMENTS`` short segments at the end, so that no
-    segment spans most of the map."""
-    dev = values.device
-    flat = labels.reshape(-1).long()
-    key = torch.where((flat > 0) & (flat < capacity), flat, capacity)
-    skey, order = torch.sort(key, stable=True)
-    # segment lengths from the sorted ids: no atomics on the crowded rest slot
-    bounds = torch.searchsorted(skey, torch.arange(capacity + 2, device=dev))
-    counts = bounds[1:] - bounds[:-1]
-    ordered = values.reshape(-1)[order]
-    rest = counts[capacity]
-    step = (rest + _REST_SEGMENTS - 1) // _REST_SEGMENTS
-    starts = torch.arange(_REST_SEGMENTS, device=dev) * step
-    rest_lengths = torch.minimum((rest - starts).clamp_min(0), step)
-    lengths = torch.cat([counts[:capacity], rest_lengths])
-    sums = torch.segment_reduce(ordered, "sum", lengths=lengths, unsafe=True)
-    return counts[:capacity], sums[:capacity]
-
-
 def db_decode_batch(
     shrink_maps: torch.Tensor,
     thresh: float,
     capacity: int = MAX_DB_COMPONENTS,
     angle_steps: int = 90,
     max_boundary: int = 8192,
+    rank_ids: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, H, W) probability maps -> (boxes (B, C, 4, 2) f32, scores (B, C),
     valid (B, C)), each page as :func:`db_decode_full_device` decodes it.
-    One K6 launch binarizes the stack and one ``cc_ids_windows_local`` call
-    labels it; the boundary table and angle scan run page by page."""
+    One K6 launch binarizes the stack and one ``cc_ids_windows_local`` or
+    ``connected_components`` call labels it; the boundary table and angle
+    scan run page by page."""
+    h, w = shrink_maps.shape[-2:]
+    if rank_ids is None:
+        rank_ids = h * w <= IDS_MAX_ELEMS
     bitmaps = binarize(shrink_maps, thresh)
-    labels = cc_ids_windows_local(bitmaps)
+    labels = cc_ids_windows_local(bitmaps) if rank_ids else connected_components(bitmaps, 8)
     outs = [
-        _decode_labeled(shrink_maps[i], labels[i], capacity, angle_steps, max_boundary)
+        _decode_labeled(shrink_maps[i], labels[i], capacity, angle_steps, max_boundary, rank_ids)
         for i in range(shrink_maps.shape[0])
     ]
     return tuple(torch.stack(t) for t in zip(*outs))
@@ -90,23 +94,28 @@ def db_decode_full_device(
     capacity: int = MAX_DB_COMPONENTS,
     angle_steps: int = 90,
     max_boundary: int = 8192,
+    rank_ids: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(H, W) probability map -> (boxes (C, 4, 2) f32 inflated by the DB
     unclip rule, scores (C,), valid (C,)).
 
-    Components whose id is ``capacity`` or more, and boundary points past the
-    first ``max_boundary`` of the (id, linear index) order, are dropped, as
-    in the JAX package.  Exact for axis-aligned text (angle 0 is on the
-    grid), within (90/angle_steps)° otherwise.
+    Components whose dense id is ``capacity`` or more, and boundary points
+    past the first ``max_boundary`` of the (id, linear index) order, are
+    dropped, as in the JAX package.  Exact for axis-aligned text (angle 0 is
+    on the grid), within (90/angle_steps)° otherwise.  ``rank_ids=None``
+    takes the rank-ids route for maps of at most 1024x1024 elements and the
+    labels route above; both give the same outputs.
     """
-    boxes, scores, valid = db_decode_batch(shrink_map[None], thresh, capacity, angle_steps, max_boundary)
+    boxes, scores, valid = db_decode_batch(shrink_map[None], thresh, capacity, angle_steps, max_boundary, rank_ids)
     return boxes[0], scores[0], valid[0]
 
 
 def _decode_labeled(
-    shrink_map: torch.Tensor, labels: torch.Tensor, capacity: int, angle_steps: int, max_boundary: int
+    shrink_map: torch.Tensor, labels: torch.Tensor, capacity: int, angle_steps: int, max_boundary: int,
+    rank_ids: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One page's decode from its map and its dense component ids."""
+    """One page's decode from its map and its labels: dense component ids
+    (``rank_ids``) or raw labels, the minimum linear index + 1."""
     h, w = shrink_map.shape
     dev = shrink_map.device
 
@@ -128,7 +137,22 @@ def _decode_labeled(
     bx = (sidx % w).to(torch.float32)
     by = (sidx // w).to(torch.float32)
     valid_pt = skey < big
-    dense = torch.where(valid_pt & (skey < capacity), skey, 0).long()
+    if rank_ids:
+        # the kernel's ids are the dense numbering: roots ascend in raster
+        # order, as first appearances do in the sorted table
+        dense = torch.where(valid_pt & (skey < capacity), skey, 0).long()
+        ids = labels
+    else:
+        # dense ids in sorted (minimum linear index) order, and a small
+        # label -> dense table for the pixels
+        first = valid_pt.clone()
+        first[1:] &= skey[1:] != skey[:-1]
+        dense = torch.cumsum(first, 0)
+        dense = torch.where(valid_pt & (dense < capacity), dense, 0)
+        lut = torch.zeros(h * w + 2, dtype=torch.int64, device=dev)
+        lut.scatter_reduce_(0, torch.where(valid_pt, skey, 0).long(), dense, "amax")
+        lut[0] = 0
+        ids = lut[labels.reshape(-1).long()].view(h, w)
 
     # batched angle scan over the boundary table: extents per (comp, angle)
     angles = torch.arange(angle_steps, dtype=torch.float32, device=dev) * (math.pi / 2 / angle_steps)
@@ -149,7 +173,7 @@ def _decode_labeled(
     bh = e3 - e2
 
     # component area & probability sum over the full map
-    counts, vsum = _component_sums(shrink_map.to(torch.float32), labels, capacity)
+    counts, vsum = component_sums(shrink_map.to(torch.float32), ids, capacity)
     area = counts.to(torch.float32)
     # ids past the truncated boundary table have no extents: zero their
     # area so `valid` drops them (table ids are contiguous 1..max)
@@ -172,6 +196,14 @@ def _decode_labeled(
     return boxes, scores, valid
 
 
+def _scale_clip(pts: np.ndarray, dest_width: int, dest_height: int, src_width: int, src_height: int) -> np.ndarray:
+    """Rescale (N, 2) points from the source to the destination size, round
+    and clip to it -> int32; ``pts`` is overwritten."""
+    pts[:, 0] = np.clip(np.round(pts[:, 0] / src_width * dest_width), 0, dest_width)
+    pts[:, 1] = np.clip(np.round(pts[:, 1] / src_height * dest_height), 0, dest_height)
+    return pts.astype(np.int32)
+
+
 def boxes_from_device_rects(
     boxes: np.ndarray,
     scores: np.ndarray,
@@ -188,10 +220,200 @@ def boxes_from_device_rects(
         if not valid[i]:
             continue
         box = geo.order_rect_points(boxes[i].astype(np.float64))
-        box[:, 0] = np.clip(np.round(box[:, 0] / src_width * dest_width), 0, dest_width)
-        box[:, 1] = np.clip(np.round(box[:, 1] / src_height * dest_height), 0, dest_height)
-        out_boxes.append(box.astype(np.int32))
+        out_boxes.append(_scale_clip(box, dest_width, dest_height, src_width, src_height))
         out_scores.append(float(scores[i]))
     if out_boxes:
         return np.stack(out_boxes), np.asarray(out_scores, np.float32)
     return np.zeros((0, 4, 2), np.int32), np.zeros((0,), np.float32)
+
+
+def _component_points(labels_np: np.ndarray, idx: int, bbox) -> np.ndarray:
+    x0, y0, x1, y1 = bbox
+    win = labels_np[y0 : y1 + 1, x0 : x1 + 1] == idx
+    ys, xs = np.nonzero(win)
+    return np.stack([xs + x0, ys + y0], axis=1).astype(np.float64)
+
+
+def _stats_np(stats: ComponentStats):
+    """(compact labels, area, value sum, xmin, ymin, xmax, ymax) as NumPy."""
+    return tuple(
+        np.asarray(t.cpu()) for t in (stats.compact_labels, stats.area, stats.value_sum,
+                                      stats.xmin, stats.ymin, stats.xmax, stats.ymax)
+    )
+
+
+def boxes_from_stats(
+    stats: ComponentStats,
+    dest_width: int,
+    dest_height: int,
+    src_width: int,
+    src_height: int,
+    unclip_ratio: float = 1.5,
+    min_sside: float = 2.0,
+    max_candidates: int = 1000,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host half: stats -> (N, 4, 2) int32 quads + (N,) float32 scores.
+
+    Mirrors the reference's boxes_from_bitmap (db_utils.py:123-166): the
+    min-area rect of each component, short sides under ``min_sside``
+    skipped, unclip by area * ratio / perimeter, rescale to the destination
+    size, round and clip.  NumPy only (the JAX package's route without its
+    native extension).
+    """
+    labels_np, area, vsum, xmin, ymin, xmax, ymax = _stats_np(stats)
+    boxes: List[np.ndarray] = []
+    scores: List[float] = []
+    n = 0
+    for i in range(1, len(area)):
+        if area[i] <= 0:
+            continue
+        n += 1
+        if n > max_candidates:
+            break
+        pts = _component_points(labels_np, i, (xmin[i], ymin[i], xmax[i], ymax[i]))
+        box, sside = geo.mini_box(pts)
+        if sside < min_sside:
+            continue
+        score = float(vsum[i] / area[i])
+        _, (w, h) = geo.min_area_rect(pts)
+        per = 2.0 * (w + h)
+        distance = (w * h) * unclip_ratio / per if per > 0 else 0.0
+        box = geo.order_rect_points(geo.inflate_rect(box, distance))
+        boxes.append(_scale_clip(box, dest_width, dest_height, src_width, src_height))
+        scores.append(score)
+    if boxes:
+        return np.stack(boxes), np.asarray(scores, np.float32)
+    return np.zeros((0, 4, 2), np.int32), np.zeros((0,), np.float32)
+
+
+def polygons_from_stats(
+    stats: ComponentStats,
+    dest_width: int,
+    dest_height: int,
+    src_width: int,
+    src_height: int,
+    unclip_ratio: float = 1.5,
+    box_thresh: float = 0.7,
+    min_size: float = 3.0,
+    max_candidates: int = 1000,
+) -> Tuple[List[np.ndarray], List[float]]:
+    """Polygon mode (the reference's polygons_from_bitmap, db_utils.py:74-121):
+    boundary trace -> Douglas-Peucker simplify (0.5% of the arc length) ->
+    score filter -> round-join polygon offset -> rescale."""
+    labels_np, area, vsum, xmin, ymin, xmax, ymax = _stats_np(stats)
+    polys: List[np.ndarray] = []
+    scores: List[float] = []
+    n = 0
+    for i in range(1, len(area)):
+        if area[i] <= 0:
+            continue
+        n += 1
+        if n > max_candidates:
+            break
+        x0, y0, x1, y1 = xmin[i], ymin[i], xmax[i], ymax[i]
+        win = labels_np[y0 : y1 + 1, x0 : x1 + 1] == i
+        contour = trace_boundary(win)
+        if len(contour) < 4:
+            continue
+        contour = contour + np.array([x0, y0])
+        eps = 0.005 * geo.perimeter(contour.astype(np.float64))
+        approx = douglas_peucker_closed(contour.astype(np.float64), eps)
+        if len(approx) < 4:
+            continue
+        score = float(vsum[i] / area[i])
+        if score < box_thresh:
+            continue
+        expanded = geo.offset_polygon(approx, _poly_unclip_distance(approx, unclip_ratio))
+        if len(expanded) < 3:
+            continue
+        _, sside = geo.mini_box(expanded)
+        if sside < min_size + 2:
+            continue
+        polys.append(_scale_clip(expanded.copy(), dest_width, dest_height, src_width, src_height))
+        scores.append(score)
+    return polys, scores
+
+
+def _poly_unclip_distance(poly: np.ndarray, unclip_ratio: float) -> float:
+    a = abs(geo.shoelace_area(poly))
+    p = geo.perimeter(poly)
+    return a * unclip_ratio / p if p > 0 else 0.0
+
+
+_MOORE = [(-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1)]
+
+
+def trace_boundary(mask: np.ndarray) -> np.ndarray:
+    """Moore-neighbour boundary trace of the region of ``mask`` that holds
+    its first set pixel in raster order.
+
+    Returns (N, 2) int64 (x, y) boundary pixel coordinates in order, the
+    analogue of cv2.findContours' outer contour.
+    """
+    ys, xs = np.nonzero(mask)
+    if len(ys) == 0:
+        return np.zeros((0, 2), np.int64)
+    start = (ys[0], xs[0])  # topmost, then leftmost
+    h, w = mask.shape
+
+    def at(p):
+        y, x = p
+        return 0 <= y < h and 0 <= x < w and mask[y, x]
+
+    contour = [start]
+    prev_dir = 6  # the trace enters the start pixel from the left
+    cur = start
+    for _ in range(4 * mask.size):
+        found = False
+        for k in range(8):
+            d = (prev_dir + 1 + k) % 8
+            ny, nx = cur[0] + _MOORE[d][0], cur[1] + _MOORE[d][1]
+            if at((ny, nx)):
+                if (ny, nx) == start and len(contour) > 1:
+                    return np.array([(x, y) for y, x in contour], np.int64)
+                contour.append((ny, nx))
+                cur = (ny, nx)
+                prev_dir = (d + 4) % 8  # the new backtrack points back where it came from
+                found = True
+                break
+        if not found:  # an isolated pixel
+            break
+    return np.array([(x, y) for y, x in contour], np.int64)
+
+
+def douglas_peucker_closed(poly: np.ndarray, eps: float) -> np.ndarray:
+    """Ramer-Douglas-Peucker simplification of a closed polygon (the
+    analogue of cv2.approxPolyDP(closed=True)): split at the point farthest
+    from the first, simplify both open chains."""
+    n = len(poly)
+    if n < 3:
+        return poly
+    i0 = 0
+    d = np.linalg.norm(poly - poly[i0], axis=1)
+    i1 = int(np.argmax(d))
+    if i1 == 0:
+        return poly[:1]
+    chain1 = poly[i0 : i1 + 1]
+    chain2 = np.vstack([poly[i1:], poly[:1]])
+    s1 = _dp_open(chain1, eps)
+    s2 = _dp_open(chain2, eps)
+    return np.vstack([s1[:-1], s2[:-1]])
+
+
+def _dp_open(pts: np.ndarray, eps: float) -> np.ndarray:
+    if len(pts) < 3:
+        return pts
+    a, b = pts[0], pts[-1]
+    ab = b - a
+    nrm = np.linalg.norm(ab)
+    if nrm < 1e-12:
+        d = np.linalg.norm(pts - a, axis=1)
+    else:
+        rel = pts - a
+        d = np.abs(ab[0] * rel[:, 1] - ab[1] * rel[:, 0]) / nrm
+    i = int(np.argmax(d))
+    if d[i] > eps:
+        left = _dp_open(pts[: i + 1], eps)
+        right = _dp_open(pts[i:], eps)
+        return np.vstack([left[:-1], right])
+    return np.vstack([a, b])

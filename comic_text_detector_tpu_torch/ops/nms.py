@@ -1,6 +1,7 @@
 """Fixed-shape non-maximum suppression.
 
-Counterpart of the JAX package's ``ops/nms.py::nms_single``: top-K
+Counterpart of the JAX package's ``ops/nms.py::nms_single`` (and
+``nms_batch``, one ``nms_single`` per image): top-K
 candidates, a KxK IoU matrix, and iteration to the exact greedy-NMS
 fixpoint (keep[j] = valid[j] ∧ ∀i<j: ¬(keep[i] ∧ iou[i,j]>t)).  The top-K
 is a stable descending sort, because ``lax.top_k`` puts the lower index
@@ -96,3 +97,16 @@ def nms_single(
     rows = torch.where(sel_valid[:, None], rows, 0.0)
     rows = F.pad(rows, (0, 0, 0, max_det - m))
     return rows, sel_valid.sum()
+
+
+def nms_batch(
+    pred: torch.Tensor,
+    conf_thresh: float,
+    iou_thresh: float,
+    max_det: int = MAX_DET,
+    max_nms: int = MAX_NMS_CANDIDATES,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nms_single` over each image of a (B, N, 5+nc) stack ->
+    ((B, max_det, 6) rows, (B,) counts)."""
+    outs = [nms_single(p, conf_thresh, iou_thresh, max_det, max_nms) for p in pred]
+    return torch.stack([r for r, _ in outs]), torch.stack([c for _, c in outs])

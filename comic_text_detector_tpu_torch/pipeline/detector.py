@@ -103,9 +103,13 @@ def build_model(variables, model_path: Optional[str], cfg: Optional[dict], act: 
 def run_net(model, lb_u8: torch.Tensor):
     """(B, S, S, 3) uint8 letterboxed pages -> the net's float32 outputs.
     The input is /255 in float32, then cast to the compute dtype by the
-    model; float32 convolutions run without TF32, as the JAX package's do."""
+    model; float32 convolutions run without TF32, as the JAX package's do,
+    and only through cuDNN's deterministic algorithms, so that a page gives
+    the same bits on every call (on the H100 the default algorithm of the
+    float32 transposed convolutions sums in another order from call to
+    call)."""
     x = lb_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
         return model(x)
 
 

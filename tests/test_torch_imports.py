@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
 ``comic_text_detector_tpu_torch`` loads no JAX, flax, PIL or cv2 and no
 module of the JAX package.  Runs in a fresh interpreter, since this test
-process imports JAX for the parity tests."""
+process imports JAX for the parity tests.  The kernel and decode modules
+are named, so that a module missing from the walk fails the test."""
 
 import os
 import subprocess
@@ -21,6 +22,7 @@ for name in names:
 banned = ("jax", "jaxlib", "flax", "PIL", "cv2", "comic_text_detector_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("MODULES", len(names))
+print("NAMES", ",".join(names))
 print("LOADED", ",".join(loaded))
 """
 
@@ -31,8 +33,13 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
         [sys.executable, "-c", _PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    report = dict(line.split(" ", 1) for line in out.stdout.splitlines() if line.startswith(("MODULES", "LOADED")))
+    report = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                  if line.startswith(("MODULES", "NAMES", "LOADED")))
     assert int(report["MODULES"]) >= 15
+    names = set(report["NAMES"].split(","))
+    for module in ("ops.scan_kernels", "ops.cc", "ops.morph", "ops.thresholding", "postproc.db_rep",
+                   "ops.db_decode", "ops.geometry", "ops.nms", "ops.cc_kernels", "ops.finalize"):
+        assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
 
 

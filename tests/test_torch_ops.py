@@ -157,7 +157,7 @@ def test_db_decode_matches_jax(seed, capacity, max_boundary, rank_ids):
     jb, js, jv = (np.asarray(a) for a in jdb.db_decode_full_device(
         jnp.asarray(sm), 0.3, capacity, 90, max_boundary, rank_ids))
     tb, ts, tv = (a.numpy() for a in tdb.db_decode_full_device(
-        torch.from_numpy(sm), 0.3, capacity, 90, max_boundary))
+        torch.from_numpy(sm), 0.3, capacity, 90, max_boundary, rank_ids))
     np.testing.assert_array_equal(tv, jv)
     assert jv.sum() > 1
     np.testing.assert_allclose(ts, js, **_SCORE_TOL[rank_ids])

@@ -1,0 +1,189 @@
+"""Port's K4 sweeps and ``connected_components`` vs the JAX package, bit for
+bit.
+
+The plain row and column sweeps are held against JAX's ``cc_row_sweep`` and
+``cc_col_sweep`` (Pallas, interpret mode on the CPU as
+``tests/test_cc_pallas.py`` runs them), with random labels under the mask's
+zeros.  ``connected_components`` on every route is held against JAX's
+``connected_components(..., "xla")`` and against ``scipy.ndimage.label`` up
+to renumbering.  Labels are integers with one right answer, so nothing is
+tolerated.
+
+On the CPU the wrappers run their plain PyTorch versions; the tests marked
+``cuda`` hold the CUDA kernels against those plain versions and run only
+where a card is present.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy import ndimage
+
+import jax.numpy as jnp
+
+from comic_text_detector_tpu.ops import cc as jcc
+from comic_text_detector_tpu.ops.pallas_kernels import cc_col_sweep as jax_col_sweep
+from comic_text_detector_tpu.ops.pallas_kernels import cc_row_sweep as jax_row_sweep
+from comic_text_detector_tpu_torch.ops import cc as tcc
+from comic_text_detector_tpu_torch.ops import scan_kernels as S
+
+
+def _serpentine(h: int, w: int) -> np.ndarray:
+    m = np.zeros((h, w), np.uint8)
+    m[::2, :] = 1
+    for r in range(0, h - 2, 2):
+        m[r + 1, 0 if (r // 2) % 2 == 0 else w - 1] = 1
+    return m
+
+
+def _blobs(h: int, w: int, seed: int) -> np.ndarray:
+    """Text-like blobs: random small rectangles and salt noise."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((h, w), np.uint8)
+    for _ in range(h * w // 500):
+        y, x = rng.integers(0, max(h - 2, 1)), rng.integers(0, max(w - 2, 1))
+        m[y : y + rng.integers(2, 8), x : x + rng.integers(2, 12)] = 1
+    m[rng.random((h, w)) > 0.97] = 1
+    return m
+
+
+def _masks(h: int, w: int) -> dict:
+    rng = np.random.default_rng(h * 1000 + w)
+    return {
+        "blobs": _blobs(h, w, seed=h + w),
+        "noise 45%": (rng.random((h, w)) < 0.45).astype(np.uint8),
+        "serpentine": _serpentine(h, w),
+        "all-zero": np.zeros((h, w), np.uint8),
+        "all-one": np.ones((h, w), np.uint8),
+    }
+
+
+def _random_labels(shape, seed: int) -> np.ndarray:
+    """Labels of the whole int32 range, not 2**30, under set and unset pixels."""
+    return np.random.default_rng(seed).integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
+
+
+def _canon(labels: np.ndarray) -> np.ndarray:
+    """Renumber by first appearance in raster order."""
+    flat = labels.reshape(-1)
+    vals, first = np.unique(flat[flat != 0], return_index=True)
+    rank = np.zeros(len(vals), np.int64)
+    rank[np.argsort(first)] = np.arange(1, len(vals) + 1)
+    out = np.zeros(flat.shape, np.int64)
+    out[flat != 0] = rank[np.searchsorted(vals, flat[flat != 0])]
+    return out.reshape(labels.shape)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (128, 256), (8, 128)])
+@pytest.mark.parametrize("kind", ["blobs", "noise 45%", "serpentine", "all-zero", "all-one"])
+def test_sweeps_plain_match_jax_kernels(shape, kind):
+    m = _masks(*shape)[kind]
+    lab = _random_labels(shape, seed=shape[0] + len(kind))
+    lj, mj = jnp.asarray(lab), jnp.asarray(m)
+    lt, mt = torch.from_numpy(lab), torch.from_numpy(m)
+    np.testing.assert_array_equal(S.cc_row_sweep(lt, mt).numpy(), np.asarray(jax_row_sweep(lj, mj)))
+    np.testing.assert_array_equal(S.cc_col_sweep(lt, mt).numpy(), np.asarray(jax_col_sweep(lj, mj)))
+
+
+def test_sweeps_take_a_stack_page_by_page():
+    """An (N, H, W) stack sweeps as its pages do one by one, at odd H and W."""
+    rng = np.random.default_rng(2)
+    m = (rng.random((3, 37, 53)) < 0.6).astype(np.uint8)
+    lab = _random_labels(m.shape, seed=3)
+    lt, mt = torch.from_numpy(lab), torch.from_numpy(m)
+    for sweep in (S.cc_row_sweep, S.cc_col_sweep):
+        got = sweep(lt, mt)
+        for i in range(3):
+            assert torch.equal(got[i], sweep(lt[i], mt[i]))
+    # a set pixel takes its run's minimum; an unset one keeps its label
+    row = S.cc_row_sweep(torch.tensor([[5, 3, 9, 7, 1, 8]], dtype=torch.int32),
+                         torch.tensor([[1, 1, 0, 1, 1, 1]], dtype=torch.uint8))
+    assert row.tolist() == [[3, 3, 9, 1, 1, 1]]
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("kind", ["blobs", "noise 45%", "serpentine", "all-zero", "all-one"])
+def test_connected_components_routes_match_jax(connectivity, kind):
+    m = _masks(48, 128)[kind] > 0
+    ref = np.asarray(jcc.connected_components(jnp.asarray(m), connectivity, "xla"))
+    structure = np.ones((3, 3)) if connectivity == 8 else None
+    sp, _ = ndimage.label(m, structure=structure)
+    mt = torch.from_numpy(m)
+    for backend in ("xla", "pallas", "vmem", "auto"):
+        if backend == "vmem" and connectivity == 4:
+            with pytest.raises(ValueError):
+                tcc.connected_components(mt, connectivity, backend)
+            continue
+        got = tcc.connected_components(mt, connectivity, backend).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, ref, err_msg=backend)
+        np.testing.assert_array_equal(_canon(got), _canon(sp), err_msg=backend)
+
+
+def test_connected_components_stack_and_rounds():
+    """A (N, H, W) stack labels each page on its own; the sweep route counts
+    its rounds, two per changed test."""
+    masks = np.stack([_masks(40, 72)[k] for k in ("blobs", "serpentine", "noise 45%")])
+    mt = torch.from_numpy(masks)
+    got = tcc.connected_components(mt, 8, "pallas")
+    for i in range(3):
+        ref = np.asarray(jcc.connected_components(jnp.asarray(masks[i] > 0), 8, "xla"))
+        np.testing.assert_array_equal(got[i].numpy(), ref)
+        np.testing.assert_array_equal(tcc.connected_components(mt[i], 8, "xla").numpy(), ref)
+    rounds = tcc.connected_components.rounds
+    assert rounds % 2 == 0 and rounds >= 20  # the serpentine turns 19 times
+
+
+def test_connected_components_validates():
+    with pytest.raises(ValueError):
+        tcc.connected_components(torch.zeros((4, 4), dtype=torch.bool), 6)
+    with pytest.raises(ValueError):
+        tcc.connected_components(torch.zeros((4, 4), dtype=torch.bool), 8, "grid")
+    with pytest.raises(ValueError):
+        tcc.connected_components(torch.zeros((4, 4), dtype=torch.float32), 8)
+    with pytest.raises(ValueError):
+        S.cc_row_sweep(torch.zeros((4, 4), dtype=torch.int32), torch.zeros((4, 5), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        S.cc_col_sweep(torch.zeros((4, 4), dtype=torch.int64), torch.zeros((4, 4), dtype=torch.uint8))
+
+
+def test_cpu_route_does_not_count_launches():
+    before = (S.cc_row_sweep.launches, S.cc_col_sweep.launches)
+    tcc.connected_components(torch.ones((16, 16), dtype=torch.bool), 8, "pallas")
+    assert (S.cc_row_sweep.launches, S.cc_col_sweep.launches) == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 53), (1037, 1531), (1536, 1536), (4, 1536, 1536), (1, 4097)])
+def test_k4_matches_plain_version_on_card(cuda_device, shape):
+    rng = np.random.default_rng(9)
+    hw = shape[-2:]
+    kinds = list(_masks(*hw).values())
+    m = np.stack([kinds[i % len(kinds)] for i in range(int(np.prod(shape[:-2], dtype=np.int64)))]).reshape(shape)
+    m[..., :1, :] = rng.random(m[..., :1, :].shape) < 0.5
+    lab = torch.from_numpy(_random_labels(shape, seed=10)).to(cuda_device)
+    mt = torch.from_numpy(m).to(cuda_device)
+    sweeps = [(S.cc_col_sweep, S.cc_col_sweep_plain)]
+    if hw[1] <= S.MAX_ROW:
+        sweeps.append((S.cc_row_sweep, S.cc_row_sweep_plain))
+    for kernel, plain in sweeps:
+        before = kernel.launches
+        got = kernel(lab, mt)
+        assert kernel.launches == before + 1
+        assert torch.equal(got, plain(lab, mt))
+
+
+@pytest.mark.cuda
+def test_k4_route_matches_k2_and_plain_on_card(cuda_device):
+    masks = torch.from_numpy(np.stack([_blobs(1100, 1024, 4), _serpentine(1100, 1024)])).to(cuda_device)
+    ref = tcc.connected_components(masks, 8, "xla")
+    assert torch.equal(tcc.connected_components(masks, 8, "pallas"), ref)
+    assert torch.equal(tcc.connected_components(masks, 8, "vmem"), ref)
+    assert torch.equal(tcc.connected_components(masks, 8, "auto"), ref)
