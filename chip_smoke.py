@@ -10,16 +10,24 @@ before it starts so a stall shows where it stopped:
    nvcc per source, all started together), with the build time;
 3. hold each kernel (K1, K2, K3, both functions of K6) and the ids route
    bit for bit against its plain PyTorch version, small inputs first; K1
-   at every refine bucket shape with 4 x slots windows; K6 on edge values
-   (every k/255 and its float32 neighbours, the threshold's neighbours)
-   and on shapes that are not a multiple of 4 or not 16-byte aligned;
+   at every refine bucket shape with 4 x slots windows; K1, K3 and the ids
+   route on masks aimed at the tile borders of K1's and K3's local phase
+   (``border_masks``: combs, a serpentine on its side, chains linked only
+   through NW or NE, zigzags, noise) at every bucket shape, 257x255,
+   1x4097, 4097x1, 64x4096, 4x1024x1024, 1037x1024, 700x1531 and 700x1400,
+   K3 with seeds over the whole int32 range; K1 on each bucket's 45% noise
+   stack and K3 on 4x1024x1024 noise 20 times, every repeat bit-identical;
+   K6 on edge values (every k/255 and its float32 neighbours, the
+   threshold's neighbours) and on shapes that are not a multiple of 4 or
+   not 16-byte aligned;
 4. the single-page paths, each on the same seeded synthetic pages with
    every kernel's launch count set to 0 just before and read just after:
    ``TextDetector("data/flagship_r2.npz", input_size=1024)`` (host refine)
    and the same with ``refine_backend="device", mask_transfer="packed"``;
    then K2 and K3 against their plain versions on the path's own
-   1024x1024 DB bitmap, K1 on page 0's own candidate stack, their times,
-   the device refine alone, and ms/page of both configurations;
+   1024x1024 DB bitmap, K1 on page 0's own candidate stack and at every
+   refine bucket shape (4 x slots glyph windows), their times, the device
+   refine alone, and ms/page of both configurations;
 5. the output check: the same page through the card and through the
    port's CPU route (plain versions) at input size 512 must agree, for
    both refine backends, and the card's ``refine_page`` must be bit-equal
@@ -29,7 +37,9 @@ before it starts so a stall shows where it stopped:
    masks, warmed on 4 pages, then 12 distinct seeded pages in three shapes
    with every launch count set to 0 just before and read just after;
    pages/s, ms/page and launches per page; K6 against its plain version
-   on the batch's own mask and shrink-map stacks, and its time;
+   on the batch's own mask and shrink-map stacks, and its time; K2 and K3
+   timed on the batch's (4, 1024, 1024) DB bitmaps, K3 with the ids as
+   seeds and with the split route's own seeds (root ranks, 2**30 elsewhere);
 7. determinism: the same 12 pages streamed again, and one single-page call
    repeated, must give bit-identical outputs;
 8. bf16 against float32 (the f32 batch stream on the same pages, mask IoU
@@ -166,6 +176,24 @@ def cuda_ms_cycle(fn, args, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_phase_ms(fn, reps: int = 20) -> dict:
+    """Device ms a call of ``fn`` spends in each CUDA kernel it launches, by
+    kernel name (CUPTI times through torch.profiler, over ``reps`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]:
+            e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def page_time_of(detector, pages) -> float:
     """ms per page of a single-page detector over ``pages``, after one
     warm-up pass, two passes timed."""
@@ -241,6 +269,108 @@ def check_k6_edges(dev) -> dict:
             if err != 0:
                 raise AssertionError(f"K6 {name}{label} differs from its plain version: {int((got != ref).sum())} values")
             errs[key] = max(errs[key], err)
+    return errs
+
+
+def border_masks(h: int, w: int):
+    """Masks aimed at the tile borders of K1's and K3's local phase (tiles
+    are runs of whole rows up to W = 1024, 1024 columns wide beyond): a
+    vertical comb with its spine at the bottom and one with it at the top,
+    a serpentine turned on its side, chains linked only through NW or only
+    through NE, zigzags linked only diagonally, and 45% noise."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w]
+    comb = (x % 2 == 0).astype(np.uint8)
+    comb_top = comb.copy()
+    comb[-1] = 1
+    comb_top[0] = 1
+    serp = np.zeros((h, w), np.uint8)
+    side = min(h, w)
+    serp[:side, :side] = serpentine(side).T
+    return {
+        "comb": comb, "comb spine on top": comb_top, "serpentine on its side": serp,
+        "NW chains": ((x - y) % 3 == 0).astype(np.uint8), "NE chains": ((x + y) % 3 == 0).astype(np.uint8),
+        "zigzags": (x % 4 == y % 2).astype(np.uint8),
+        "noise 45%": (np.random.default_rng(h * 7919 + w).random((h, w)) < 0.45).astype(np.uint8),
+    }
+
+
+def edge_seeds(rng, m_np):
+    """int32 seeds over the whole int32 range, with -1, 0, 2**30 and
+    2**31 - 2 mixed in; background gets random values (K3 must not read
+    them)."""
+    import numpy as np
+
+    vals = rng.integers(-(2**31), 2**31 - 1, m_np.shape, dtype=np.int64)
+    special = np.array([-1, 0, 2**30, 2**31 - 2], np.int64)
+    pick = rng.random(m_np.shape)
+    vals = np.where(pick < 0.2, special[rng.integers(0, 4, m_np.shape)], vals)
+    return vals.astype(np.int32)
+
+
+def check_tile_borders(dev, bucket_shapes) -> dict:
+    """K1, K3 and the split ids route (K2 -> cumsum -> K3) bit for bit
+    against their plain versions on ``border_masks``: K1 on stacks of them
+    at every refine bucket shape and at 257x255, 1x4097, 4097x1 and
+    64x4096; K3 on 4x1024x1024 stacks, 1037x1024, 1x4097 and 700x1531 (tiles
+    side by side, with chains crossing the vertical tile edge through NE
+    and NW) with seeds over the whole int32 range; the ids route where the
+    window is above 512x512 and at most 1024x1024.  Then K1 on the 45%
+    noise stack of each bucket, and K3 on 4x1024x1024 noise, 20 times each:
+    every repeat must give the same bits.  Returns the max abs errors."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import cc_kernels as K
+
+    rng = np.random.default_rng(22)
+    errs = {"K1": 0, "K3": 0, "ids": 0}
+
+    def same(kname, name, got, ref):
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
+        if err != 0:
+            raise AssertionError(f"{kname} differs from its plain version on {name}: {int((got != ref).sum())} pixels")
+        errs[kname] = max(errs[kname], err)
+
+    def stack(h, w, n):
+        kinds = list(border_masks(h, w).values())
+        return torch.from_numpy(np.stack([kinds[i % len(kinds)] for i in range(n)])).to(dev)
+
+    k1_shapes = [(n, h, w) for h, w, n in bucket_shapes] + [(8, 257, 255), (2, 1, 4097), (2, 4097, 1),
+                                                             (2, 64, 4096)]
+    for n, h, w in k1_shapes:
+        for name, win in border_masks(h, w).items():
+            m = torch.from_numpy(np.repeat(win[None], n, 0)).to(dev)
+            same("K1", f"{name} {n}x{h}x{w}", K.cc_ids_fused(m), K.cc_ids_windows_local_plain(m))
+        m = stack(h, w, n)
+        same("K1", f"mixed {n}x{h}x{w}", K.cc_ids_fused(m), K.cc_ids_windows_local_plain(m))
+    phase("  K1 bit-equal on the tile-border masks at " + ", ".join(f"{n}x{h}x{w}" for n, h, w in k1_shapes))
+
+    k3_cases = {"mixed 4x1024x1024": stack(1024, 1024, 4)}
+    for h, w in ((1037, 1024), (1, 4097), (700, 1531), (700, 1400)):
+        for name, win in border_masks(h, w).items():
+            k3_cases[f"{name} 1x{h}x{w}"] = torch.from_numpy(win[None]).to(dev)
+    for name, m in k3_cases.items():
+        seeds = torch.from_numpy(edge_seeds(rng, m.cpu().numpy())).to(dev)
+        same("K3", name, K.min_prop_windows_local(m, seeds), K.min_prop_windows_local_plain(m, seeds))
+        if K.FUSED_IDS_MAX_ELEMS < m.shape[1] * m.shape[2] <= K.IDS_MAX_ELEMS:
+            same("ids", name, K.cc_ids_windows_local(m), K.cc_ids_windows_local_plain(m))
+    phase(f"  K3 bit-equal on the tile-border masks with edge seeds ({len(k3_cases)} cases, 1037x1024, "
+          "1x4097, 700x1531 among them); the split ids route on those above 512x512")
+
+    for n, h, w in [(n, h, w) for h, w, n in bucket_shapes]:
+        m = torch.from_numpy((rng.random((n, h, w)) < 0.45).astype(np.uint8)).to(dev)
+        ref = K.cc_ids_windows_local_plain(m)
+        for rep in range(20):
+            same("K1", f"noise 45% {n}x{h}x{w}, repeat {rep}", K.cc_ids_fused(m), ref)
+    m = torch.from_numpy((rng.random((4, 1024, 1024)) < 0.45).astype(np.uint8)).to(dev)
+    seeds = torch.from_numpy(edge_seeds(rng, m.cpu().numpy())).to(dev)
+    ref = K.min_prop_windows_local_plain(m, seeds)
+    for rep in range(20):
+        same("K3", f"noise 45% 4x1024x1024, repeat {rep}", K.min_prop_windows_local(m, seeds), ref)
+    phase("  20 repeats bit-identical: K1 on the 45% noise stack of every bucket, K3 on 4x1024x1024 noise")
     return errs
 
 
@@ -383,8 +513,10 @@ def main() -> None:
             raise AssertionError(f"K1 differs from its plain version on {name}: {int((got != ref).sum())} pixels")
         return err
 
+    k1_glyph_stacks = {}  # timed in phase 4
     for bh, bw, slots, _cap in R.BUCKETS:
         glyph = (synthetic_page(rng, bh, bw, colour=False)[..., 0] < 128).astype(np.uint8)
+        k1_glyph_stacks[(bh, bw)] = torch.from_numpy(np.repeat(glyph[None], 4 * slots, 0)).to(dev)
         serp = np.zeros((bh, bw), np.uint8)
         side = min(bh, bw)
         serp[:side, :side] = serpentine(side)
@@ -397,6 +529,8 @@ def main() -> None:
         mixed = np.stack([list(kinds.values())[i % 5] for i in range(4 * slots)])
         hold_k1(f"mixed {4 * slots}x{bh}x{bw}", torch.from_numpy(mixed).to(dev))
         phase(f"  K1 bit-equal at {4 * slots}x{bh}x{bw}: glyph, serpentine, noise 45%, all-zero, all-one, mixed")
+
+    border_errs = check_tile_borders(dev, [(bh, bw, 4 * slots) for bh, bw, slots, _cap in R.BUCKETS])
 
     k6_edge_errs = check_k6_edges(dev)
     phase("  K6 mask_to_u8 and binarize bit-equal on edge values, odd and unaligned shapes")
@@ -500,15 +634,40 @@ def main() -> None:
         cands, _ = R._candidates(win_img, win_msk, in_win)
         stack = R._drop_tiny_components((cands > 0).reshape(4 * slots, bh, bw)).to(torch.uint8).contiguous()
     k1_err = hold_k1(f"page 0 candidate stack {tuple(stack.shape)}", stack)
-    k1_out, k1_parent = torch.empty(stack.shape, dtype=torch.int32, device=dev), torch.empty(
-        stack.shape, dtype=torch.int32, device=dev)
-    k1_ms = cuda_ms(lambda: K.launch_cc_ids_window(stack, k1_parent, k1_out, err), 50)
-    if int(err.item()):
-        raise AssertionError("a union-find loop bound was hit while timing K1")
+
+    def k1_launcher(m):
+        n, h, w = m.shape
+        out = torch.empty(m.shape, dtype=torch.int32, device=dev)
+        parent = torch.empty(m.shape, dtype=torch.int32, device=dev)
+        counts = torch.empty((n, K.ids_chunk_count(h, w)), dtype=torch.int32, device=dev)
+        return out, lambda: K.launch_cc_ids_window(m, parent, counts, out, err)
+
+    def time_k1(m, iters=50):
+        """K1's time on one (N, h, w) stack, by raw launches."""
+        out, launch = k1_launcher(m)
+        ms = cuda_ms(launch, iters)
+        if int(err.item()):
+            raise AssertionError("a union-find loop bound was hit while timing K1")
+        return ms, int(out.max())
+
+    k1_ms, k1_max_id = time_k1(stack)
+    k1_phases = kernel_phase_ms(k1_launcher(stack)[1])
+    phase("  K1 on page 0's candidates by kernel (ms a launch): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k1_phases.items()))
     k1_plain = cuda_ms(lambda: K.cc_ids_windows_local_plain(stack), 5)
     k1_bytes = stack.numel() * (1 + 4)  # mask in, ids out
     phase(f"  K1 on page 0's candidates {tuple(stack.shape)} ({len(sel)} windows of bucket {bh}x{bw}): "
-          f"{k1_ms:.4f} ms, plain {k1_plain:.2f} ms, {int(k1_out.max())} max id")
+          f"{k1_ms:.4f} ms, plain {k1_plain:.2f} ms, bound {k1_bytes / H100_BYTES_PER_S * 1e3:.5f} ms, "
+          f"{k1_max_id} max id")
+    # every refine bucket at its dispatch size (4 x slots windows), on a glyph window
+    k1_buckets = {}
+    for (gh, gw), m in k1_glyph_stacks.items():
+        k1_buckets[f"{m.shape[0]}x{gh}x{gw}"] = {
+            "ms": time_k1(m)[0], "plain_ms": cuda_ms(lambda: K.cc_ids_windows_local_plain(m), 3),
+            "bound_ms": m.numel() * 5 / H100_BYTES_PER_S * 1e3,
+        }
+    phase("  K1 by bucket, glyph windows (ms): " + ", ".join(
+        f"{k} {v['ms']:.4f} (plain {v['plain_ms']:.2f}, bound {v['bound_ms']:.5f})" for k, v in k1_buckets.items()))
 
     page_ms = page_time_of(det, pages)
     page_ms_dev = page_time_of(det_dev, pages)
@@ -750,15 +909,28 @@ def main() -> None:
     ids_b = K.cc_ids_windows_local(bitmaps)
     seeds_b = torch.where(ids_b > 0, ids_b, K.CC_BIG).to(torch.int32)
     out_b, parent_b = torch.empty_like(seeds_b), torch.empty_like(seeds_b)
+    # the split route's own seeds: each root's raster rank, 2**30 elsewhere
+    lin_b = torch.arange(bitmaps.shape[1] * bitmaps.shape[2], dtype=torch.int32, device=dev).view(1, *bitmaps.shape[1:])
+    roots_b = (K.cc_windows_local(bitmaps) == lin_b) & (bitmaps != 0)
+    rank_b = torch.cumsum(roots_b.view(roots_b.shape[0], -1), dim=1, dtype=torch.int32).view(roots_b.shape)
+    split_seeds_b = torch.where(roots_b, rank_b, K.CC_BIG).to(torch.int32)
+    if not torch.equal(K.min_prop_windows_local(bitmaps, split_seeds_b),
+                       K.min_prop_windows_local_plain(bitmaps, split_seeds_b)):
+        raise AssertionError("K3 differs from its plain version on the split route's seeds")
     k2b_ms = cuda_ms(lambda: K.launch_cc_window(bitmaps, out_b, err), 50)
     k3b_ms = cuda_ms(lambda: K.launch_min_prop_window(bitmaps, seeds_b, parent_b, out_b, err), 50)
+    k3s_ms = cuda_ms(lambda: K.launch_min_prop_window(bitmaps, split_seeds_b, parent_b, out_b, err), 50)
     if int(err.item()):
         raise AssertionError("a union-find loop bound was hit while timing the batch's bitmap")
+    k3_phases = kernel_phase_ms(lambda: K.launch_min_prop_window(bitmaps, seeds_b, parent_b, out_b, err))
+    phase("  K3 on the batch's DB bitmaps by kernel (ms a launch): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k3_phases.items()))
     k2b_plain = cuda_ms(lambda: K.cc_windows_local_plain(bitmaps), 3)
     k3b_plain = cuda_ms(lambda: K.min_prop_windows_local_plain(bitmaps, seeds_b), 3)
     pxb = bitmaps.numel()
     phase(f"  K2 / K3 on the batch's DB bitmaps {tuple(bitmaps.shape)}: {k2b_ms:.4f} / {k3b_ms:.4f} ms "
-          f"(plain {k2b_plain:.2f} / {k3b_plain:.2f} ms)")
+          f"(plain {k2b_plain:.2f} / {k3b_plain:.2f} ms); K3 on the split route's seeds {k3s_ms:.4f} ms; "
+          f"bounds {pxb * 5 / H100_BYTES_PER_S * 1e3:.5f} / {pxb * 9 / H100_BYTES_PER_S * 1e3:.5f} ms")
 
     def net_any_algo(model, lb_u8):
         x = lb_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
@@ -975,7 +1147,8 @@ def main() -> None:
             "name": "cc_ids_window (K1)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:335",
-            "launches": launches_b["K1"], "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+            "launches": launches_b["K1"], "max_abs_err": max(k1_err, border_errs["K1"]), "ms": k1_ms,
+            "plain_ms": k1_plain,
             "bound_ms": k1_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
         {
@@ -990,7 +1163,8 @@ def main() -> None:
             "name": "min_prop_window (K3)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:320",
-            "launches": launches_b["K3"], "max_abs_err": max(db_errs["K3"], db_errs_b["K3"]), "ms": k3b_ms,
+            "launches": launches_b["K3"],
+            "max_abs_err": max(db_errs["K3"], db_errs_b["K3"], border_errs["K3"], border_errs["ids"]), "ms": k3b_ms,
             "plain_ms": k3b_plain, "bound_ms": pxb * 9 / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
         },
@@ -1045,6 +1219,8 @@ def main() -> None:
                       "stream_top_kernels": top_kernels,
                       "bf16_vs_f32_mask_iou": ious16, "batch_vs_single": diag, "bf16_net_gap_b4_vs_b1": net_gap,
                       "batch_stage_ms": batch_stages, "k2_k3_batch_ms": [k2b_ms, k3b_ms],
+                      "k3_split_seeds_ms": k3s_ms, "k1_bucket_ms": k1_buckets,
+                      "k1_phase_ms": k1_phases, "k3_phase_ms": k3_phases,
                       "k2_k3_single_ms": [k2_ms, k3_ms], "k2_k3_single_plain_ms": [k2_plain, k3_plain],
                       "build_s": build_s,
                       "page_ms": page_ms, "page_ms_device_refine": page_ms_dev, "device_step_ms": step_ms,

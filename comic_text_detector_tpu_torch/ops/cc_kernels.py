@@ -21,9 +21,12 @@ it raises.  Both routes give the same ids.
 
 All three kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
 plain-C shared library on first use (``ops/cuda_build.py``) and bound with
-``ctypes``.  Each wrapper launches its kernel for a CUDA tensor, uses the
-plain PyTorch version beside it for a CPU tensor, and counts its launches in
-``<wrapper>.launches``.
+``ctypes``.  K1 and K3 label inside shared-memory tiles of a window, then
+join the tiles along their borders (the design is in the source's note);
+K1 also ranks the roots over raster chunks of ``IDS_CHUNK`` pixels, and its
+wrapper sizes that scratch with ``ids_chunk_count``.  Each wrapper launches
+its kernel for a CUDA tensor, uses the plain PyTorch version beside it for
+a CPU tensor, and counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ CC_BIG = 2**30
 _INT32_MAX = 2**31 - 1
 FUSED_IDS_MAX_ELEMS = 512 * 512  # K1's largest window (pallas_kernels.py:389)
 IDS_MAX_ELEMS = 1024 * 1024  # the split route's largest window (pallas_kernels.py:465)
+IDS_CHUNK = 8192  # K1 ranks roots in raster chunks of this many pixels (kChunk in csrc/cc.cu)
 
 # W, NW, N, NE: each 8-neighbour pair is visited once, from its later pixel
 _BACK_NEIGHBOURS = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
@@ -58,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     lib.ctd_cc_window.restype = i
     lib.ctd_min_prop_window.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.ctd_min_prop_window.restype = i
-    lib.ctd_cc_ids_window.argtypes = [p, p, p, p, i, i, i, p]
+    lib.ctd_cc_ids_window.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.ctd_cc_ids_window.restype = i
     lib.ctd_error_string.argtypes = [i]
     lib.ctd_error_string.restype = ctypes.c_char_p
@@ -169,7 +173,12 @@ def launch_cc_window(masks_u8: torch.Tensor, out: torch.Tensor, err: torch.Tenso
 def launch_min_prop_window(masks_u8: torch.Tensor, seeds_i32: torch.Tensor, parent: torch.Tensor,
                            out: torch.Tensor, err: torch.Tensor) -> None:
     """Enqueue K3 on the current stream (no count, no sync); raises if the
-    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    launch was refused.  ``parent`` is int32 scratch of the masks' shape;
+    ``parent`` and ``out`` start on 16 bytes (K3 moves four pixels at a
+    time), as ``torch.empty`` gives them.  ``err`` turns nonzero if a loop
+    bound was hit."""
+    if parent.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("min_prop_windows_local: parent and out must start on 16 bytes")
     n, h, w = masks_u8.shape
     lib = _lib()
     stream = torch.cuda.current_stream(masks_u8.device).cuda_stream
@@ -181,15 +190,23 @@ def launch_min_prop_window(masks_u8: torch.Tensor, seeds_i32: torch.Tensor, pare
         raise RuntimeError(f"min_prop_windows_local: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
 
 
-def launch_cc_ids_window(masks_u8: torch.Tensor, parent: torch.Tensor, out: torch.Tensor,
-                         err: torch.Tensor) -> None:
+def ids_chunk_count(h: int, w: int) -> int:
+    """K1's raster chunks a window of (h, w): the length of each window's
+    row of the ``counts`` scratch."""
+    return -(-h * w // IDS_CHUNK)
+
+
+def launch_cc_ids_window(masks_u8: torch.Tensor, parent: torch.Tensor, counts: torch.Tensor,
+                         out: torch.Tensor, err: torch.Tensor) -> None:
     """Enqueue K1 on the current stream (no count, no sync); raises if the
-    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    launch was refused.  ``parent`` is int32 scratch of the masks' shape,
+    ``counts`` int32 scratch of (N, ids_chunk_count(H, W)).  ``err`` turns
+    nonzero if a loop bound was hit."""
     n, h, w = masks_u8.shape
     lib = _lib()
     stream = torch.cuda.current_stream(masks_u8.device).cuda_stream
-    rc = lib.ctd_cc_ids_window(masks_u8.data_ptr(), parent.data_ptr(), out.data_ptr(), err.data_ptr(),
-                               n, h, w, stream)
+    rc = lib.ctd_cc_ids_window(masks_u8.data_ptr(), parent.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                               err.data_ptr(), n, h, w, stream)
     if rc != 0:
         raise RuntimeError(f"cc_ids_fused: CUDA launch failed: {lib.ctd_error_string(rc).decode()}")
 
@@ -243,10 +260,12 @@ def cc_ids_fused(masks_u8: torch.Tensor) -> torch.Tensor:
     if masks_u8.device.type == "cpu":
         return cc_ids_windows_local_plain(masks_u8)
     masks_u8 = masks_u8.contiguous()
+    n, h, w = masks_u8.shape
     parent = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
+    counts = torch.empty((n, ids_chunk_count(h, w)), dtype=torch.int32, device=masks_u8.device)
     out = torch.empty(masks_u8.shape, dtype=torch.int32, device=masks_u8.device)
     err = torch.zeros(1, dtype=torch.int32, device=masks_u8.device)
-    launch_cc_ids_window(masks_u8, parent, out, err)
+    launch_cc_ids_window(masks_u8, parent, counts, out, err)
     cc_ids_fused.launches += 1
     _raise_on_bound(err, "cc_ids_fused")
     return out

@@ -42,6 +42,23 @@ def _glyphs(h: int, w: int, seed: int) -> np.ndarray:
     return (mask[:h, :w] > 127).astype(np.uint8)
 
 
+def _border_windows(h: int, w: int) -> np.ndarray:
+    """Masks aimed at the tile borders of the CUDA K1 and K3: vertical combs
+    with their spine at the bottom and at the top, a serpentine turned on
+    its side, chains linked only through NW or only through NE, and zigzags
+    linked only diagonally."""
+    y, x = np.mgrid[0:h, 0:w]
+    comb = (x % 2 == 0).astype(np.uint8)
+    comb_top = comb.copy()
+    comb[-1] = 1
+    comb_top[0] = 1
+    serp = np.zeros((h, w), np.uint8)
+    s = min(h, w)
+    serp[:s, :s] = _serpentine(s).T
+    return np.stack([comb, comb_top, serp, ((x - y) % 3 == 0).astype(np.uint8),
+                     ((x + y) % 3 == 0).astype(np.uint8), (x % 4 == y % 2).astype(np.uint8)])
+
+
 def _windows(h: int, w: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     serp = np.zeros((h, w), np.uint8)
@@ -65,26 +82,42 @@ def _k1_windows(h: int, w: int, seed: int) -> np.ndarray:
                            np.ones((1, h, w), np.uint8)])
 
 
+# windows of the direct JAX-kernel tests; the border shapes (rows that are
+# not whole 32-pixel words, nor a power of two) also carry _border_windows
+BORDER_SHAPES = [(40, 72), (37, 129)]
+SMALL_SHAPES = [(64, 128), (256, 256)] + BORDER_SHAPES
+
+
+def _small_windows(shape, seed: int) -> np.ndarray:
+    masks = _windows(*shape, seed=seed)
+    return np.concatenate([masks, _border_windows(*shape)]) if shape in BORDER_SHAPES else masks
+
+
 def _seeds(masks: np.ndarray, seed: int) -> np.ndarray:
-    """Random seeds on foreground, 2**30 elsewhere and on 30% of foreground
-    (the split route seeds only foreground pixels)."""
+    """Seeds from -2**31 to 2**30 on 70% of foreground, with -1, 0 and 2**30
+    mixed in; 2**30 elsewhere and on the rest of the foreground.  2**30 is
+    the JAX kernel's "no seed": it reads the seeds under the background too
+    (K3 does not) and takes no seed above 2**30, so larger seeds are held
+    against the plain version on the card only (chip_smoke.py)."""
     rng = np.random.default_rng(seed)
-    vals = rng.integers(0, 1 << 20, masks.shape)
+    vals = rng.integers(-(2**31), _CC_BIG + 1, masks.shape)
+    special = np.array([-1, 0, _CC_BIG])[rng.integers(0, 3, masks.shape)]
+    vals = np.where(rng.random(masks.shape) < 0.2, special, vals)
     keep = (masks > 0) & (rng.random(masks.shape) < 0.7)
     return np.where(keep, vals, _CC_BIG).astype(np.int32)
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (256, 256)])
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
 def test_cc_windows_plain_matches_jax_kernel(shape):
-    masks = _windows(*shape, seed=1)
+    masks = _small_windows(shape, seed=1)
     ref = np.asarray(jax_cc_windows(jnp.asarray(masks), True))
     got = K.cc_windows_local(torch.from_numpy(masks)).numpy()
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (256, 256)])
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
 def test_min_prop_plain_matches_jax_kernel(shape):
-    masks = _windows(*shape, seed=2)
+    masks = _small_windows(shape, seed=2)
     seeds = _seeds(masks, 3)
     ref = np.asarray(jax_min_prop(jnp.asarray(masks), jnp.asarray(seeds), True))
     got = K.min_prop_windows_local(torch.from_numpy(masks), torch.from_numpy(seeds)).numpy()
@@ -105,9 +138,11 @@ def test_split_ids_matches_jax_at_512x640():
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (128, 128)])
+@pytest.mark.parametrize("shape", [(64, 128), (128, 128)] + BORDER_SHAPES)
 def test_k1_plain_matches_jax_fused_kernel(shape):
     masks = _k1_windows(*shape, seed=6)
+    if shape in BORDER_SHAPES:
+        masks = np.concatenate([masks, _border_windows(*shape)])
     ref = np.asarray(jax_cc_ids(jnp.asarray(masks), True))
     got = K.cc_ids_fused(torch.from_numpy(masks)).numpy()
     np.testing.assert_array_equal(got, ref)
@@ -132,6 +167,21 @@ def test_ids_route_by_window_size(monkeypatch):
     assert calls == ["K1", "K1", "K1", "split", "split"]
     with pytest.raises(ValueError):
         K.cc_ids_windows_local(torch.zeros((1, 1025, 1024), dtype=torch.uint8))
+
+
+def test_ids_chunk_count_sizes_k1_scratch():
+    """K1's per-window chunk counts: ceil(H*W / IDS_CHUNK), at most 32 for
+    any window K1 takes (one warp scans them), with IDS_CHUNK the chunk of
+    csrc/cc.cu."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(K.__file__), "..", "csrc", "cc.cu")).read()
+    assert int(re.search(r"constexpr int kChunk = (\d+);", src).group(1)) == K.IDS_CHUNK
+    assert int(re.search(r"constexpr int kMaxChunks = (\d+);", src).group(1)) == 32
+    assert [K.ids_chunk_count(h, w) for h, w in [(1, 1), (64, 128), (1, 8192), (1, 8193), (257, 255), (257, 256), (512, 512)]] == [
+        1, 1, 1, 2, 8, 9, 32]
+    assert max(K.ids_chunk_count(h, K.FUSED_IDS_MAX_ELEMS // h) for h in (1, 3, 255, 512, 4096)) <= 32
 
 
 def test_k1_refuses_windows_above_512x512():
