@@ -30,7 +30,9 @@
 //
 // K1 and K3: block-based union-find (after Allegretti, Bolelli and Grana,
 // "Optimized Block-Based Algorithms to Label Connected Components on GPUs",
-// IEEE TPDS 2020), four launches each.  A window's pixels are numbered in
+// IEEE TPDS 2020), four launches each; the last three use programmatic
+// dependent launch (launch_after), which hides most of the gaps between
+// them.  A window's pixels are numbered in
 // raster order (p = row * W + col); every union hooks the larger root under
 // the smaller, so every link points to a smaller index and the root of each
 // component is its minimum pixel: K2's label, and the pixel whose raster
@@ -71,9 +73,9 @@
 //            roots, not the pixels.  K1: one 1024-thread block per raster
 //            chunk of 8192 pixels of a window (chunks, not tiles, so the rank
 //            is right whatever the tiling); each thread takes 8 neighbouring
-//            pixels, points each tile root at its root, marks the roots
-//            (parent[p] == p, fixed once the border phase is done), and one
-//            block scan ranks them; it writes -(rank in the chunk) at each
+//            pixels (two 16-byte loads), points each tile root at its root,
+//            marks the roots (parent[p] == p, fixed once the border phase is
+//            done), and one block scan ranks them; it writes -(rank in the chunk) at each
 //            root's slot of out and the chunk's root count to counts.
 //   gather   every pixel reaches its root in at most two reads (its own
 //            link, then its tile root's).  K3: out[p] = out[root], four
@@ -191,6 +193,26 @@ __global__ void flatten_kernel(const uint8_t* __restrict__ mask, int* parent, lo
     long long base = i - i % hw;
     parent[i] = find_root(parent + base, (int)(i - base), hw, err);
 }
+
+// The later launches of K1 and K3 use programmatic dependent launch: a
+// kernel may start while the previous one in the stream drains, and waits
+// for that kernel's results (griddep_wait, its first statement) before it
+// reads them.  That hides most of the gap between the dependent launches.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t stream, Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
 
 inline unsigned int blocks_for(long long total) {
     return (unsigned int)((total + kThreads - 1) / kThreads);
@@ -499,6 +521,7 @@ __device__ void border_links(const uint8_t* m, int* par, int y, int x, const Til
 // of tile blockIdx.x.
 __global__ void border_kernel(const uint8_t* __restrict__ mask, int* parent, int h, int w, Tiling t,
                               int* err) {
+    griddep_wait();
     const Tile s = tile_of(t, h, w);
     int first = s.y0 > 0 ? 1 : 0;                  // the side columns' first row below the top row
     int top = s.y0 > 0 ? s.tw : 0;                 // N, NW, NE lie in the tiles above
@@ -534,6 +557,7 @@ dim3 border_grid(const Tiling& t, int n) {
 // here, the root's only written, so the two never race.  Four pixels a
 // thread, read with one 16-byte load where they lie in the array.
 __global__ void resolve_min_kernel(int* parent, int* out, long long total, int hw, int* err) {
+    griddep_wait();
     long long i0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (i0 >= total) return;
     int v[4];
@@ -559,6 +583,7 @@ __global__ void resolve_min_kernel(int* parent, int* out, long long total, int h
 // component's minimum.  Four pixels a thread; a root's slot is rewritten with
 // the value it holds, so the reads of it by other threads never race.
 __global__ void gather_min_kernel(const int* __restrict__ parent, int* out, long long total, int hw) {
+    griddep_wait();
     long long i0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (i0 >= total) return;
     bool whole = i0 + 4 <= total;  // the four pixels are in the array, and 16-byte aligned
@@ -595,14 +620,20 @@ constexpr int kChunkRun = kChunk / kChunkThreads;
 
 __global__ void __launch_bounds__(kChunkThreads)
 rank_chunks_kernel(int* parent, int* out, int* counts, int hw, int chunks, int* err) {
+    griddep_wait();
     __shared__ int warp_sum[kChunkThreads / 32];
     int n = blockIdx.x / chunks, c = blockIdx.x - n * chunks;
     long long base = (long long)n * hw;
     int* par = parent + base;
     int lo = c * kChunk + kChunkRun * threadIdx.x, hi = min(c * kChunk + kChunk, hw);
     int v[kChunkRun];
+    if (lo + kChunkRun <= hi && ((uintptr_t)(par + lo) & 15) == 0) {
+        int4 a = *reinterpret_cast<const int4*>(par + lo), b = *reinterpret_cast<const int4*>(par + lo + 4);
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
 #pragma unroll
-    for (int k = 0; k < kChunkRun; ++k) v[k] = lo + k < hi ? par[lo + k] : kBackground;
+        for (int k = 0; k < kChunkRun; ++k) v[k] = lo + k < hi ? par[lo + k] : kBackground;
+    }
     unsigned roots = 0;  // bit k: pixel lo + k is its component's root
 #pragma unroll
     for (int k = 0; k < kChunkRun; ++k) {
@@ -637,6 +668,7 @@ rank_chunks_kernel(int* parent, int* out, int* counts, int hw, int chunks, int* 
 __global__ void __launch_bounds__(kChunkThreads)
 ids_gather_kernel(const int* __restrict__ parent, const int* __restrict__ counts, int* out, int hw,
                   int chunks) {
+    griddep_wait();
     __shared__ int offset[kMaxChunks];
     int n = blockIdx.x / chunks, c = blockIdx.x - n * chunks;
     long long base = (long long)n * hw;
@@ -699,11 +731,13 @@ int ctd_min_prop_window(const uint8_t* mask, const int32_t* seeds, int32_t* pare
     Tiling t = tiling(h, w);
     unsigned int tiles = (unsigned int)(n * (long long)t.tiles);
     local_kernel<true><<<tiles, kLocalThreads, 0, stream>>>(mask, seeds, parent, out, h, w, t, err);
-    border_kernel<<<border_grid(t, n), kThreads, 0, stream>>>(mask, parent, h, w, t, err);
     unsigned int quads = blocks_for((total + 3) / 4);  // four pixels a thread
-    resolve_min_kernel<<<quads, kThreads, 0, stream>>>(parent, out, total, h * w, err);
-    gather_min_kernel<<<quads, kThreads, 0, stream>>>(parent, out, total, h * w);
-    return (int)cudaGetLastError();
+    cudaError_t rc = launch_after(border_kernel, border_grid(t, n), dim3(kThreads), stream, mask, parent, h, w, t, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(resolve_min_kernel, dim3(quads), dim3(kThreads), stream, parent, out, total, h * w, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(gather_min_kernel, dim3(quads), dim3(kThreads), stream, (const int*)parent, out, total, h * w);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 // K1.  parent is int32 scratch of the same shape, counts int32 scratch of
@@ -717,10 +751,14 @@ int ctd_cc_ids_window(const uint8_t* mask, int32_t* parent, int32_t* counts, int
     Tiling t = tiling(h, w);
     unsigned int tiles = (unsigned int)(n * (long long)t.tiles);
     local_kernel<false><<<tiles, kLocalThreads, 0, stream>>>(mask, nullptr, parent, nullptr, h, w, t, err);
-    border_kernel<<<border_grid(t, n), kThreads, 0, stream>>>(mask, parent, h, w, t, err);
-    rank_chunks_kernel<<<n * chunks, kChunkThreads, 0, stream>>>(parent, out, counts, h * w, chunks, err);
-    ids_gather_kernel<<<n * chunks, kChunkThreads, 0, stream>>>(parent, counts, out, h * w, chunks);
-    return (int)cudaGetLastError();
+    dim3 blocks(n * chunks);
+    cudaError_t rc = launch_after(border_kernel, border_grid(t, n), dim3(kThreads), stream, mask, parent, h, w, t, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(rank_chunks_kernel, blocks, dim3(kChunkThreads), stream, parent, out, counts, h * w, chunks, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(ids_gather_kernel, blocks, dim3(kChunkThreads), stream, (const int*)parent,
+                          (const int*)counts, out, h * w, chunks);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 const char* ctd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
