@@ -54,7 +54,13 @@ before it starts so a stall shows where it stopped:
    serpentine, 45% noise, all-zero, all-one, 1037x1531 and a
    (4, 1536, 1536) stack, with random labels under the background; then
    ``connected_components`` on the K4, K2 and plain routes, with the K4
-   fixpoint's rounds;
+   fixpoint's rounds; then the column kernel alone on masks aimed at its
+   row chunks (``col_chunk_masks``: runs that fill chunks, cross, start,
+   end or break at their borders, one-pixel runs there, full-height
+   columns) at heights 1536, 1535, 1537, 2047, 2048, 2049, 3001, 31, 33
+   and 64, on one-row and one-column maps, on 4-page stacks whose seams
+   are set on both sides, with labels over the whole int32 range, and 20
+   times on (4, 1536, 1536) 45% noise, every repeat bit-identical;
 10. K5 (3x3 erode, dilate and cross erode) bit for bit against its plain
    version, uint8 and float32, at 1536x1536, 1x4097, 4097x1 and 1037x1531;
 11. the path at input 1536: ``BatchTextDetector(..., input_size=1536,
@@ -68,7 +74,8 @@ before it starts so a stall shows where it stopped:
 12. ``SegDetectorRepresenter`` in quad and polygon mode on that net's DB
    maps, the card against the port's CPU route; then K4 and K5 timed at the
    path's shapes beside their bounds, their plain versions and, where one
-   exists, a single PyTorch call computing the same function.
+   exists, a single PyTorch call computing the same function; K4's column
+   kernel also at (4, 2048, 2048), the batch's bitmaps scaled up.
 
 Prints ``{"kernels": [...]}`` on a line of its own, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -407,6 +414,110 @@ def check_k4(dev, cases: dict) -> int:
                                  f"K2 {int((k2 != plain_cc).sum())} pixels")
         phase(f"  {name} {tuple(m.shape)}: sweeps bit-equal, connected_components equal on K4, K2 and plain "
               f"({rounds} K4 rounds, {k4_s * 1e3:.1f} ms)")
+    return 0
+
+
+def col_chunk_masks(n: int, h: int, w: int):
+    """(N, H, W) masks aimed at the row chunks of K4's column kernel (32
+    chunks of ceil(H / 32) rows a column, ``kColChunks`` in
+    ``csrc/scan.cu``), column by column: runs filling
+    every other chunk, runs crossing each chunk border by one pixel on each
+    side, runs that end just above a border and start just below it (a
+    break exactly at the border), one-pixel runs just below and just above
+    each border, full-height columns, and 45% noise with every chunk
+    border's two pixels set."""
+    import numpy as np
+
+    c = -(-h // 32)
+    borders = np.arange(c, h, c)
+    m = np.zeros((n, h, w), np.uint8)
+    rng = np.random.default_rng(h * 7 + w)
+    for j in range(w):
+        kind = j % 7
+        if kind == 0:
+            for k in range(0, -(-h // c), 2):
+                m[:, k * c:(k + 1) * c, j] = 1
+        elif kind == 1:
+            for b in borders:
+                m[:, b - 1:b + 1, j] = 1
+        elif kind == 2:
+            for b in borders:
+                m[:, max(b - 5, 0):b, j] = 1
+                m[:, b + 1:b + 6, j] = 1
+        elif kind == 3:
+            m[:, borders, j] = 1
+        elif kind == 4:
+            m[:, borders - 1, j] = 1
+        elif kind == 5:
+            m[:, :, j] = 1
+        else:
+            m[:, :, j] = rng.random((n, h)) < 0.45
+            m[:, borders - 1, j] = 1
+            m[:, borders, j] = 1
+    return m
+
+
+def check_k4_columns(dev) -> int:
+    """K4's column kernel against its plain version on masks aimed at its
+    row chunks and page seams, with labels over the whole int32 range
+    (INT32_MIN and INT32_MAX among them, under set and unset pixels); then
+    20 repeats on 45% noise, each bit-identical.  Returns the max abs error
+    (0, or it raises)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import scan_kernels as K4
+
+    rng = np.random.default_rng(19)
+
+    def labels_for(shape):
+        lab = rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
+        lab[rng.random(shape) < 0.01] = 2**31 - 1
+        lab[rng.random(shape) < 0.01] = -(2**31)
+        return torch.from_numpy(lab).to(dev)
+
+    def hold(name, m_np):
+        m = torch.from_numpy(np.ascontiguousarray(m_np)).to(dev)
+        lab = labels_for(m.shape)
+        got, ref = K4.cc_col_sweep(lab, m), K4.cc_col_sweep_plain(lab, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 cc_col_sweep differs from its plain version on {name} {tuple(m.shape)}: "
+                                 f"{int((got != ref).sum())} pixels")
+
+    names = []
+    # chunk borders at the path's height, at 32 x 64 and its neighbours (the
+    # last heights whose chunks keep their mask in a register, and the first
+    # that read it again), at a tall height, and with empty chunks
+    for n, h, w in ((1, 1536, 1536), (1, 1535, 97), (1, 1537, 97), (1, 2048, 64), (1, 2047, 70), (1, 2049, 70),
+                    (1, 3001, 97), (1, 31, 53), (1, 33, 53), (2, 64, 1531)):
+        hold("chunk borders", col_chunk_masks(n, h, w))
+        names.append(f"{n}x{h}x{w}")
+    # one row, and one column
+    for shape in ((1, 1, 1531), (3, 1, 40), (1, 1537, 1)):
+        hold("one row or column", (rng.random(shape) < 0.6).astype(np.uint8))
+        names.append("x".join(map(str, shape)))
+    # a 4-page stack whose seams are set on both sides, under different labels
+    seam = (rng.random((4, 1536, 1531)) < 0.45).astype(np.uint8)
+    seam[:, :2] = 1
+    seam[:, -2:] = 1
+    hold("page seams set on both sides", seam)
+    seam_full = np.zeros((4, 1536, 97), np.uint8)
+    seam_full[:, :, ::2] = 1  # full-height columns on every page
+    hold("full-height columns on 4 pages", seam_full)
+    names += ["4x1536x1531 seams", "4x1536x97 full-height"]
+    phase(f"  K4 column kernel bit-equal on its row-chunk borders, one-row and one-column maps and page seams: "
+          + ", ".join(names))
+    # 20 repeats on 45% noise, each bit-identical to the plain version
+    m = torch.from_numpy((rng.random((4, 1536, 1536)) < 0.45).astype(np.uint8)).to(dev)
+    lab = labels_for(m.shape)
+    ref = K4.cc_col_sweep_plain(lab, m)
+    for i in range(20):
+        got = K4.cc_col_sweep(lab, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 cc_col_sweep repeat {i} on 45% noise differs: {int((got != ref).sum())} pixels")
+    phase("  K4 column kernel: 20 repeats on (4, 1536, 1536) 45% noise, each bit-identical")
     return 0
 
 
@@ -997,6 +1108,7 @@ def main() -> None:
         "the batch's DB bitmap stack": bitmaps_big.cpu(),
     }
     k4_err = check_k4(dev, k4_cases)
+    k4c_err = check_k4_columns(dev)
 
     phase("10/12 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
@@ -1096,6 +1208,8 @@ def main() -> None:
         phase(f"  {mode} mode: {[len(b) for b in bg_]} per page, equal on card and CPU (scores within 1e-5), "
               f"{rep_ms:.1f} ms/page on the card")
 
+    import torch.nn.functional as F
+
     # K4 per launch at the path's (4, 1536, 1536), on the labels of its second round
     lin = torch.arange(big * big, dtype=torch.int32, device=dev).view(1, big, big)
     lab0 = torch.where(bitmaps_big != 0, lin, K.CC_BIG).contiguous()
@@ -1111,15 +1225,27 @@ def main() -> None:
     cc_k2_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "vmem"), 3)
     cc_plain_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "xla"), 3)
     phase(f"  K4 on {tuple(bitmaps_big.shape)}: row {k4r_ms:.4f} ms (plain {k4r_plain:.3f}), column {k4c_ms:.4f} ms "
-          f"(plain {k4c_plain:.3f}), bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none")
+          f"(plain {k4c_plain:.3f}), bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none; {smi}")
+    # the column kernel at input_size 2048: the batch's bitmaps scaled up by
+    # nearest neighbour, 2 copies of 4 x 2048 x 2048 cycled (2 x 84 MB)
+    s2 = 2048
+    bitmaps_2048 = F.interpolate(bitmaps_big[:, None].float(), size=(s2, s2), mode="nearest")[:, 0].to(torch.uint8)
+    lin2 = torch.arange(s2 * s2, dtype=torch.int32, device=dev).view(1, s2, s2)
+    lab2 = torch.where(bitmaps_2048 != 0, lin2, K.CC_BIG).contiguous()
+    k4c_2048_args = [(lab2.clone(), bitmaps_2048.clone(), torch.empty_like(lab2)) for _ in range(2)]
+    if not torch.equal(K4.cc_col_sweep(lab2, bitmaps_2048), K4.cc_col_sweep_plain(lab2, bitmaps_2048)):
+        raise AssertionError("K4 cc_col_sweep differs from its plain version on the 2048 bitmaps")
+    k4c_2048 = {"ms": cuda_ms_cycle(K4.launch_col_sweep, k4c_2048_args, 100),
+                "plain_ms": cuda_ms(lambda: K4.cc_col_sweep_plain(lab2, bitmaps_2048), 5),
+                "bound_ms": bitmaps_2048.numel() * (4 + 1 + 4) / H100_BYTES_PER_S * 1e3}
+    phase(f"  K4 column on {tuple(bitmaps_2048.shape)} (the 1536 bitmaps scaled up): {k4c_2048['ms']:.4f} ms "
+          f"(plain {k4c_2048['plain_ms']:.3f}), bound {k4c_2048['bound_ms']:.4f} ms; {smi}")
     phase(f"  connected_components on the batch's bitmaps: K4 route {cc_k4_ms:.2f} ms ({k4_rounds} rounds), "
           f"K2 route {cc_k2_ms:.2f} ms, plain {cc_plain_ms:.2f} ms")
 
     # K5 at 1536 x 1536, uint8 and float32; the library call for dilate is one
     # max_pool2d on a replicate-padded float32 input, for erode one on the
     # negated padded input (the same minimum, negated); the cross has none
-    import torch.nn.functional as F
-
     k5 = {}
     x8 = torch.from_numpy(np.random.default_rng(18).integers(0, 256, (big, big), dtype=np.uint8)).to(dev)
     for dtype, x in (("uint8", x8), ("float32", x8.float())):
@@ -1195,7 +1321,7 @@ def main() -> None:
             "name": "cc_col_sweep (K4 columns)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
-            "launches": launches_big["K4 col"], "max_abs_err": k4_err, "ms": k4c_ms, "plain_ms": k4c_plain,
+            "launches": launches_big["K4 col"], "max_abs_err": max(k4_err, k4c_err), "ms": k4c_ms, "plain_ms": k4c_plain,
             "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
     ]
@@ -1237,6 +1363,7 @@ def main() -> None:
                       "stream_device_busy_ms_per_page": busy_big / len(hpages), "stream_idle_share": idle_big,
                       "stream_top_kernels": top_big, "single_page": single_big, "representer": rep_summary,
                       "k4_ms": [k4r_ms, k4c_ms], "k4_plain_ms": [k4r_plain, k4c_plain],
+                      "k4_col_2048": k4c_2048,
                       "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds},
                       "k5_ms": {f"{n} {d}": v for (n, d), v in k5.items()},
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)

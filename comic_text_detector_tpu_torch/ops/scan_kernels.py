@@ -19,7 +19,12 @@ Both are CUDA C++ (``csrc/scan.cu``), built by ``nvcc`` on first use and
 bound with ``ctypes``.  Each wrapper launches its kernel for a CUDA tensor,
 uses the plain PyTorch version beside it for a CPU tensor, and counts its
 launches in ``<wrapper>.launches``.  The row kernel holds a row in shared
-memory and takes W <= 4096; the column kernel takes any H.
+memory and takes W <= 4096.  The column kernel takes any H and W: a
+chunked segmented scan, one block per strip of 32 columns of a page, each
+column cut into 32 row chunks, one thread a chunk.  Each thread summarises
+its chunk (the runs touching its top and bottom), two scans over the
+summaries carry each run's minimum across the chunk borders, and each
+thread walks its chunk again, forward and back, with those carries.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ The plain row and column sweeps are held against JAX's ``cc_row_sweep`` and
 zeros.  ``connected_components`` on every route is held against JAX's
 ``connected_components(..., "xla")`` and against ``scipy.ndimage.label`` up
 to renumbering.  Labels are integers with one right answer, so nothing is
-tolerated.
+tolerated.  A NumPy model of the CUDA column kernel's decomposition (row
+chunks, their summaries, the carries across chunk borders) is held bit for
+bit against both at several chunk counts.
 
 On the CPU the wrappers run their plain PyTorch versions; the tests marked
 ``cuda`` hold the CUDA kernels against those plain versions and run only
@@ -99,6 +101,124 @@ def test_sweeps_take_a_stack_page_by_page():
     row = S.cc_row_sweep(torch.tensor([[5, 3, 9, 7, 1, 8]], dtype=torch.int32),
                          torch.tensor([[1, 1, 0, 1, 1, 1]], dtype=torch.uint8))
     assert row.tolist() == [[3, 3, 9, 1, 1, 1]]
+
+
+def _chunked_col_sweep_model(lab: np.ndarray, m: np.ndarray, chunks: int) -> np.ndarray:
+    """NumPy model of the column kernel of ``csrc/scan.cu`` on an (N, H, W)
+    stack, with ``chunks`` row chunks a column (the kernel has 32), all
+    columns of a page at once.
+
+    Pass 1 walks each chunk's mask for its summary: first / last pixel set,
+    set throughout, and the minima of the runs at its top and bottom, whose
+    labels are the only ones it reads.  Two segmented scans over the
+    summaries carry (gate, value) pairs down and up.  Pass 2 walks each
+    chunk forward from the carry above, writing every pixel, then back from
+    the carry below, reading each run's last pixel and writing the rest of
+    the run."""
+    n, h, w = lab.shape
+    c = -(-h // chunks)
+    out = np.zeros_like(lab)
+    for p in range(n):
+        lp, mp, op = lab[p], m[p] != 0, out[p]
+        span = [(min(k * c, h), min(min(k * c, h) + c, h)) for k in range(chunks)]
+        first, last, full = (np.zeros((chunks, w), bool) for _ in range(3))
+        top, bot = (np.zeros((chunks, w), np.int32) for _ in range(2))
+        for k, (r0, r1) in enumerate(span):  # pass 1
+            if r1 == r0:
+                continue
+            ms = mp[r0:r1]
+            top_len = np.where(ms.all(0), r1 - r0, np.argmin(ms, 0))  # leading set rows
+            bot_start = np.where(ms.all(0), 0, r1 - r0 - np.argmin(ms[::-1], 0))  # first row of the trailing run
+            first[k], last[k], full[k] = top_len > 0, bot_start < r1 - r0, top_len == r1 - r0
+            rows = np.arange(r1 - r0)[:, None]
+            top[k] = np.where(rows < top_len, lp[r0:r1], np.iinfo(np.int32).max).min(0)
+            bot[k] = np.where(rows >= bot_start, lp[r0:r1], np.iinfo(np.int32).max).min(0)
+        down_g, up_g = np.zeros((chunks, w), bool), np.zeros((chunks, w), bool)
+        down, up = np.zeros((chunks, w), np.int32), np.zeros((chunks, w), np.int32)
+        g, v = np.zeros(w, bool), np.zeros(w, np.int32)
+        for k in range(chunks):  # carry down: a run passes a border where both sides are set
+            down_g[k], down[k] = g, v
+            v = np.where(last[k], np.where(full[k] & g, np.minimum(bot[k], v), bot[k]), v)
+            g = last[k].copy()
+        g, v = np.zeros(w, bool), np.zeros(w, np.int32)
+        for k in reversed(range(chunks)):  # carry up
+            up_g[k], up[k] = g, v
+            v = np.where(first[k], np.where(full[k] & g, np.minimum(top[k], v), top[k]), v)
+            g = first[k].copy()
+        for k, (r0, r1) in enumerate(span):  # pass 2
+            if r1 == r0:
+                continue
+            prev, carry = first[k] & down_g[k], down[k]
+            for r in range(r0, r1):
+                s = mp[r]
+                op[r] = np.where(s & prev, np.minimum(carry, lp[r]), lp[r])
+                carry, prev = op[r].copy(), s
+            # back: the bottom pixel takes the carry from below where it enters
+            enter = last[k] & up_g[k]
+            op[r1 - 1] = np.where(enter, np.minimum(op[r1 - 1], up[k]), op[r1 - 1])
+            prev = np.zeros(w, bool)
+            for r in range(r1 - 1, r0 - 1, -1):
+                s = mp[r]
+                carry = np.where(s & ~prev, op[r], carry)  # a run's last pixel: its minimum
+                op[r] = np.where(s & prev, carry, op[r])
+                prev = s
+    return out
+
+
+def _column_masks(shape, kind: str, chunks: int) -> np.ndarray:
+    """(N, H, W) masks for the chunked column sweep.  ``"chunk borders"``
+    puts, column by column, runs that fill whole chunks, runs that cross a
+    border by one pixel on each side, and one-pixel runs just below and just
+    above each border of ``chunks`` chunks."""
+    n, h, w = shape
+    rng = np.random.default_rng(h * 100 + w)
+    if kind == "noise 60%":
+        m = (rng.random(shape) < 0.6).astype(np.uint8)
+        m[:-1, -3:, ::2] = 1  # runs across the page seams, set on both sides
+        m[1:, :3, ::2] = 1
+        return m
+    if kind == "all-one":
+        return np.ones(shape, np.uint8)
+    if kind == "all-zero":
+        return np.zeros(shape, np.uint8)
+    if kind == "serpentine columns":
+        return np.broadcast_to(_serpentine(w, h).T, shape).copy()
+    c = -(-h // chunks)
+    m = np.zeros(shape, np.uint8)
+    borders = np.arange(c, h, c)
+    for j in range(w):
+        if j % 4 == 0:
+            for k in range(0, -(-h // c), 2):
+                m[:, k * c : (k + 1) * c, j] = 1
+        for b in borders:
+            if j % 4 == 1:
+                m[:, b - 1 : b + 1, j] = 1
+            elif j % 4 == 2:
+                m[:, b, j] = 1
+            elif j % 4 == 3:
+                m[:, b - 1, j] = 1
+    return m
+
+
+_CHUNK_COUNTS = ["1", "3", "16", "32", "H", "H+5"]
+
+
+@pytest.mark.parametrize("chunks", _CHUNK_COUNTS)
+@pytest.mark.parametrize("kind", ["noise 60%", "all-one", "all-zero", "serpentine columns", "chunk borders"])
+@pytest.mark.parametrize("shape", [(1, 1, 7), (2, 37, 53), (1, 97, 33)])
+def test_chunked_column_model_matches_plain_and_jax(shape, kind, chunks):
+    """The column kernel's decomposition (chunk summaries, the carries down
+    and up, pass 2), modelled in NumPy at several chunk counts, is bit-equal
+    to the plain column sweep and to JAX's ``cc_col_sweep`` page by page."""
+    k = {"H": shape[1], "H+5": shape[1] + 5}.get(chunks) or int(chunks)
+    m = _column_masks(shape, kind, k)
+    lab = _random_labels(shape, seed=shape[1] + k)
+    got = _chunked_col_sweep_model(lab, m, k)
+    np.testing.assert_array_equal(got, S.cc_col_sweep_plain(torch.from_numpy(lab), torch.from_numpy(m)).numpy())
+    for p in range(shape[0]):
+        np.testing.assert_array_equal(got[p], np.asarray(jax_col_sweep(jnp.asarray(lab[p]), jnp.asarray(m[p]))))
+    if kind == "all-zero":
+        np.testing.assert_array_equal(got, lab)
 
 
 @pytest.mark.parametrize("connectivity", [4, 8])
