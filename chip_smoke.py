@@ -17,6 +17,10 @@ before it starts so a stall shows where it stopped:
    1x4097, 4097x1, 64x4096, 4x1024x1024, 1037x1024, 700x1531 and 700x1400,
    K3 with seeds over the whole int32 range; K1 on each bucket's 45% noise
    stack and K3 on 4x1024x1024 noise 20 times, every repeat bit-identical;
+   K2 on ``border_masks`` and on chains that cross its tile seam at x = 1024
+   through NE or NW only (``seam_chains``) at widths 1023, 1024, 1025, 1536,
+   2047, 2048 and 2049 and heights 1, 13 and 37, on 4-page stacks whose
+   pages differ at the seams, and 20 times on (4, 1536, 1536) noise;
    K6 on edge values (every k/255 and its float32 neighbours, the
    threshold's neighbours) and on shapes that are not a multiple of 4 or
    not 16-byte aligned;
@@ -39,7 +43,8 @@ before it starts so a stall shows where it stopped:
    pages/s, ms/page and launches per page; K6 against its plain version
    on the batch's own mask and shrink-map stacks, and its time; K2 and K3
    timed on the batch's (4, 1024, 1024) DB bitmaps, K3 with the ids as
-   seeds and with the split route's own seeds (root ranks, 2**30 elsewhere);
+   seeds and with the split route's own seeds (root ranks, 2**30 elsewhere),
+   K2 also from device memory (copies cycled) with its time by kernel;
 7. determinism: the same 12 pages streamed again, and one single-page call
    repeated, must give bit-identical outputs;
 8. bf16 against float32 (the f32 batch stream on the same pages, mask IoU
@@ -54,7 +59,9 @@ before it starts so a stall shows where it stopped:
    serpentine, 45% noise, all-zero, all-one, 1037x1531 and a
    (4, 1536, 1536) stack, with random labels under the background; then
    ``connected_components`` on the K4, K2 and plain routes, with the K4
-   fixpoint's rounds; then the column kernel alone on masks aimed at its
+   fixpoint's rounds; ``connected_components(connectivity=4)`` through
+   ``"auto"`` against the plain route, through K4 at 2x64x4096 and past
+   K4's rows at 2x64x5000; then the column kernel alone on masks aimed at its
    row chunks (``col_chunk_masks``: runs that fill chunks, cross, start,
    end or break at their borders, one-pixel runs there, full-height
    columns) at heights 1536, 1535, 1537, 2047, 2048, 2049, 3001, 31, 33
@@ -66,8 +73,9 @@ before it starts so a stall shows where it stopped:
 11. the path at input 1536: ``BatchTextDetector(..., input_size=1536,
    half=True, refine_backend="device", mask_transfer="packed").stream`` over
    8 high-resolution scans (2150x1500, 2048x1448, 1500x2150), whose DB
-   decode labels through K4, with every launch count set to 0 just before
-   and read just after; pages/s, launches per page and the device's idle
+   decode labels through K2 (``connected_components`` on the card), with
+   every launch count set to 0 just before and read just after, and K4's
+   held at 0; pages/s, launches per page and the device's idle
    share; ``TextDetector(..., input_size=1536)`` with the host refine and
    with the device refine + packed; repeat runs bit-identical; the batch's
    DB decode bit-equal through K4, K2 and the plain route;
@@ -75,7 +83,9 @@ before it starts so a stall shows where it stopped:
    maps, the card against the port's CPU route; then K4 and K5 timed at the
    path's shapes beside their bounds, their plain versions and, where one
    exists, a single PyTorch call computing the same function; K4's column
-   kernel also at (4, 2048, 2048), the batch's bitmaps scaled up.
+   kernel also at (4, 2048, 2048), the batch's bitmaps scaled up; K2 from
+   device memory on the batch's bitmaps and at (4, 2048, 2048), with its
+   time by kernel, and ``connected_components`` through ``"auto"`` on both.
 
 Prints ``{"kernels": [...]}`` on a line of its own, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -199,6 +209,29 @@ def kernel_phase_ms(fn, reps: int = 20) -> dict:
     return {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]:
             e.self_device_time_total / reps / 1e3
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def time_k2(bitmaps, copies: int, plain_ms: float, smi: str) -> dict:
+    """K2 on an (N, H, W) uint8 stack by raw launches, cycling ``copies``
+    copies of the stack and its output so that they come from device
+    memory; its time by kernel, its bound (5 bytes a pixel) and the plain
+    version's time ``plain_ms``.  Prints one line."""
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import cc_kernels as K
+
+    err = torch.zeros(1, dtype=torch.int32, device=bitmaps.device)
+    args = [(bitmaps.clone(), torch.empty(bitmaps.shape, dtype=torch.int32, device=bitmaps.device), err)
+            for _ in range(copies)]
+    ms = cuda_ms_cycle(K.launch_cc_window, args, 100)
+    by_kernel = kernel_phase_ms(lambda: K.launch_cc_window(*args[0]))
+    if int(err.item()):
+        raise AssertionError("a union-find loop bound was hit while timing K2")
+    bound = bitmaps.numel() * 5 / H100_BYTES_PER_S * 1e3
+    phase(f"  K2 on {tuple(bitmaps.shape)} from device memory ({copies} copies cycled): {ms:.4f} ms, bound "
+          f"{bound:.5f} ms (5 B a pixel at 3.35 TB/s), plain {plain_ms:.2f} ms; by kernel (ms a launch): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()) + f"; {smi}")
+    return {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms, "phase_ms": by_kernel}
 
 
 def page_time_of(detector, pages) -> float:
@@ -379,6 +412,76 @@ def check_tile_borders(dev, bucket_shapes) -> dict:
         same("K3", f"noise 45% 4x1024x1024, repeat {rep}", K.min_prop_windows_local(m, seeds), ref)
     phase("  20 repeats bit-identical: K1 on the 45% noise stack of every bucket, K3 on 4x1024x1024 noise")
     return errs
+
+
+def seam_chains(h: int, w: int, through: str):
+    """Components that cross the tile seam at x = 1024 by one diagonal link
+    only: every third row y, a run ending at (y, 1023) and a run starting at
+    (y - 1, 1024) (linked through NE), or a run starting at (y, 1024) and one
+    ending at (y - 1, 1023) (through NW).  The rows take every offset from
+    the 8-row tile edges, so some links also cross a tile row's edge."""
+    import numpy as np
+
+    m = np.zeros((h, w), np.uint8)
+    for y in range(1, h, 3):
+        if through == "NE":
+            m[y, 1000:1024] = 1
+            m[y - 1, 1024:1050] = 1
+        else:
+            m[y, 1024:1050] = 1
+            m[y - 1, 1000:1024] = 1
+    return m
+
+
+def check_k2_seams(dev) -> int:
+    """K2 bit for bit against its plain version on masks aimed at its tiles
+    and the seams between them: ``border_masks`` and ``seam_chains`` at
+    widths 1023, 1024, 1025, 1536, 2047, 2048 and 2049 (tiles of up to 1024
+    columns side by side beyond 1024) and heights 1, 13 and 37 (not whole
+    tiles of 8 rows); 4-page stacks whose pages differ at the seams; then 20
+    repeats on (4, 1536, 1536) 45% noise, each bit-identical.  Returns the
+    max abs error (0, or it raises)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import cc_kernels as K
+
+    def hold(name, m_np):
+        m = torch.from_numpy(np.ascontiguousarray(m_np)).to(dev)
+        got, ref = K.cc_windows_local(m), K.cc_windows_local_plain(m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 differs from its plain version on {name} {tuple(m.shape)}: "
+                                 f"{int((got != ref).sum())} pixels")
+
+    cases = 0
+    for w in (1023, 1024, 1025, 1536, 2047, 2048, 2049):
+        for h in (1, 13, 37):
+            kinds = dict(border_masks(h, w))
+            if w > 1024:
+                kinds["NE across x = 1024"] = seam_chains(h, w, "NE")
+                kinds["NW across x = 1024"] = seam_chains(h, w, "NW")
+            for name, win in kinds.items():
+                hold(name, win[None])
+                cases += 1
+    phase(f"  K2 bit-equal on the tile-border masks and chains across x = 1024 ({cases} cases): widths 1023, "
+          "1024, 1025, 1536, 2047, 2048, 2049; heights 1, 13, 37")
+    for h, w in ((37, 1536), (203, 2049), (61, 2048)):
+        kinds = border_masks(h, w)
+        pages = [seam_chains(h, w, "NE"), seam_chains(h, w, "NW"), kinds["noise 45%"], kinds["NE chains"]]
+        pages[2][:, 1022:1026] = 1  # the noise page's seam set on both sides
+        hold("a 4-page stack whose pages differ at the seams", np.stack(pages))
+    phase("  K2 bit-equal on 4-page stacks whose pages differ at the seams: 4x37x1536, 4x203x2049, 4x61x2048")
+    m = (np.random.default_rng(24).random((4, 1536, 1536)) < 0.45).astype(np.uint8)
+    mt = torch.from_numpy(m).to(dev)
+    ref = K.cc_windows_local_plain(mt)
+    for i in range(20):
+        got = K.cc_windows_local(mt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 repeat {i} on (4, 1536, 1536) 45% noise differs: {int((got != ref).sum())} pixels")
+    phase("  K2: 20 repeats on (4, 1536, 1536) 45% noise, each bit-identical")
+    return 0
 
 
 def check_k4(dev, cases: dict) -> int:
@@ -642,6 +745,7 @@ def main() -> None:
         phase(f"  K1 bit-equal at {4 * slots}x{bh}x{bw}: glyph, serpentine, noise 45%, all-zero, all-one, mixed")
 
     border_errs = check_tile_borders(dev, [(bh, bw, 4 * slots) for bh, bw, slots, _cap in R.BUCKETS])
+    k2_seam_err = check_k2_seams(dev)
 
     k6_edge_errs = check_k6_edges(dev)
     phase("  K6 mask_to_u8 and binarize bit-equal on edge values, odd and unaligned shapes")
@@ -1042,6 +1146,8 @@ def main() -> None:
     phase(f"  K2 / K3 on the batch's DB bitmaps {tuple(bitmaps.shape)}: {k2b_ms:.4f} / {k3b_ms:.4f} ms "
           f"(plain {k2b_plain:.2f} / {k3b_plain:.2f} ms); K3 on the split route's seeds {k3s_ms:.4f} ms; "
           f"bounds {pxb * 5 / H100_BYTES_PER_S * 1e3:.5f} / {pxb * 9 / H100_BYTES_PER_S * 1e3:.5f} ms")
+    # K2 from device memory: 4 copies of the bitmaps and outputs (80 MB, over the L2)
+    k2_timed = {"1024": time_k2(bitmaps, 4, k2b_plain, smi)}
 
     def net_any_algo(model, lb_u8):
         x = lb_u8.permute(0, 3, 1, 2).to(torch.float32) / 255.0
@@ -1109,6 +1215,19 @@ def main() -> None:
     }
     k4_err = check_k4(dev, k4_cases)
     k4c_err = check_k4_columns(dev)
+    # 4-connected maps through "auto": K4 where its rows take the width, the
+    # plain route where they are wider
+    for shape, k4_expected in (((2, 64, 4096), True), ((2, 64, 5000), False)):
+        m4 = torch.from_numpy((np.random.default_rng(25).random(shape) < 0.55).astype(np.uint8)).to(dev)
+        before = K4.cc_row_sweep.launches
+        got4 = CC.connected_components(m4, 4)
+        launched = K4.cc_row_sweep.launches > before
+        same = torch.equal(got4, CC.connected_components(m4, 4, "xla"))
+        if not same or launched != k4_expected:
+            raise AssertionError(f"connected_components(connectivity=4) through auto on {shape}: K4 launched "
+                                 f"{launched}, labels equal to the plain route {same}")
+    phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
+          "2x64x5000 (rows wider than K4's) through the plain route")
 
     phase("10/12 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
@@ -1118,9 +1237,11 @@ def main() -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_big, launches_big = drive(lambda: list(bdet_big.stream(iter(hpages))),
-                                  ["K1", "K4 row", "K4 col", "K6 mask_to_u8", "K6 binarize"])
+                                  ["K1", "K2", "K6 mask_to_u8", "K6 binarize"])
     big_s = time.perf_counter() - t0
     per_page_big = {k: v / len(hpages) for k, v in launches_big.items()}
+    if launches_big["K4 row"] or launches_big["K4 col"]:
+        raise AssertionError(f"K4 was launched on the {big} stream: {launches_big}")
     for p, (mask, refined, blks) in zip(hpages, out_big):
         if mask.shape != p.shape[:2] or refined.shape != p.shape[:2] or mask.dtype != np.uint8:
             raise AssertionError(f"mask shapes {mask.shape} {refined.shape} for page {p.shape}")
@@ -1133,6 +1254,9 @@ def main() -> None:
     phase(f"  bf16 stream at {big}: {len(hpages) / big_s:.3f} pages/s, {big_s * 1e3 / len(hpages):.2f} ms/page; "
           f"blocks per page {blocks_big}, lines per page {lines_per_page}")
     phase(f"  launches per page: {per_page_big}")
+    phase(f"  K4 launches on the {big} stream: 0 (the card's connected_components labels 8-connected maps "
+          "with K2 at every size; K4 runs for backend='pallas' and 4-connected maps); the kernels line gives "
+          "K4's launches from this stream")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         list(bdet_big.stream(iter(hpages)))
         torch.cuda.synchronize()
@@ -1154,7 +1278,9 @@ def main() -> None:
                                                                            mask_transfer="packed"))):
         det_big = TextDetector(WEIGHTS, input_size=big, **kw)
         res, launches_single = drive(lambda: [det_big(hpages[0]) for _ in range(2)],
-                                     ["K4 row", "K4 col", "K6 mask_to_u8", "K6 binarize"])
+                                     ["K2", "K6 mask_to_u8", "K6 binarize"])
+        if launches_single["K4 row"] or launches_single["K4 col"]:
+            raise AssertionError(f"K4 was launched by TextDetector at {big} ({name}): {launches_single}")
         if not same_outputs(*res):
             (m1, r1, b1), (m2, r2, b2) = res
             raise AssertionError(f"TextDetector at {big} ({name}) differs between two calls: mask "
@@ -1180,7 +1306,7 @@ def main() -> None:
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
                 raise AssertionError(f"the DB decode at {big} differs between K4 and the {backend} route")
     if not all(torch.equal(torch.stack([d[j] for d in decoded["pallas"]]), auto[j]) for j in range(3)):
-        raise AssertionError(f"db_decode_batch at {big} differs from its K4 route")
+        raise AssertionError(f"db_decode_batch at {big} (through K2) differs from its K4 route")
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
@@ -1242,6 +1368,19 @@ def main() -> None:
           f"(plain {k4c_2048['plain_ms']:.3f}), bound {k4c_2048['bound_ms']:.4f} ms; {smi}")
     phase(f"  connected_components on the batch's bitmaps: K4 route {cc_k4_ms:.2f} ms ({k4_rounds} rounds), "
           f"K2 route {cc_k2_ms:.2f} ms, plain {cc_plain_ms:.2f} ms")
+    # K2 on the 1536 batch's bitmaps and on the 2048 ones (2 copies each cycled,
+    # 2 x 47 MB and 2 x 84 MB); connected_components through "auto", which
+    # takes K2 on the card
+    cc_auto_ms = {}
+    for name, m in (("1536", bitmaps_big), ("2048", bitmaps_2048)):
+        if not torch.equal(K.cc_windows_local(m), K.cc_windows_local_plain(m)):
+            raise AssertionError(f"K2 differs from its plain version on the {name} bitmaps")
+        k2_timed[name] = time_k2(m, 2, cuda_ms(lambda: K.cc_windows_local_plain(m), 3), smi)
+        if not torch.equal(CC.connected_components(m, 8), CC.connected_components(m, 8, "xla")):
+            raise AssertionError(f"connected_components through auto differs from the plain route on the {name} bitmaps")
+        cc_auto_ms[name] = cuda_ms(lambda: CC.connected_components(m, 8), 20)
+    phase(f"  connected_components through auto (K2): {cc_auto_ms['1536']:.3f} ms on {tuple(bitmaps_big.shape)}, "
+          f"{cc_auto_ms['2048']:.3f} ms on {tuple(bitmaps_2048.shape)}; equal to the plain route; {smi}")
 
     # K5 at 1536 x 1536, uint8 and float32; the library call for dilate is one
     # max_pool2d on a replicate-padded float32 input, for erode one on the
@@ -1281,8 +1420,9 @@ def main() -> None:
             "name": "cc_window (K2)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:300",
-            "launches": launches_b["K2"], "max_abs_err": max(db_errs["K2"], db_errs_b["K2"]), "ms": k2b_ms,
-            "plain_ms": k2b_plain, "bound_ms": pxb * 5 / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "launches": launches_b["K2"], "max_abs_err": max(db_errs["K2"], db_errs_b["K2"], k2_seam_err),
+            "ms": k2_timed["1024"]["ms"], "plain_ms": k2b_plain, "bound_ms": pxb * 5 / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
             "library_ms": None,
         },
         {
@@ -1364,7 +1504,9 @@ def main() -> None:
                       "stream_top_kernels": top_big, "single_page": single_big, "representer": rep_summary,
                       "k4_ms": [k4r_ms, k4c_ms], "k4_plain_ms": [k4r_plain, k4c_plain],
                       "k4_col_2048": k4c_2048,
-                      "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds},
+                      "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds,
+                                "auto": cc_auto_ms},
+                      "k2": k2_timed,
                       "k5_ms": {f"{n} {d}": v for (n, d), v in k5.items()},
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

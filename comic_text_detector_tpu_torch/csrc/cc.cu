@@ -21,18 +21,19 @@
 // all three are bound by memory: K1 and K2 must read the mask and write the
 // labels (5 bytes a pixel), K3 must also read the seeds (9 bytes a pixel).
 // At the main path's shapes that is 10.5 MB for K1 (32 windows of 256x256,
-// 3.1 us at 3.35 TB/s) and 37.7 MB for K3 (4 x 1024x1024, 11.3 us).  The TPU
+// 3.1 us at 3.35 TB/s), 21 MB for K2 (4 x 1024x1024, 6.3 us; 4 x 1536x1536,
+// 14.1 us) and 37.7 MB for K3 (4 x 1024x1024, 11.3 us).  The TPU
 // kernels iterate row/column min-sweeps to a fixpoint with the whole window
 // in VMEM; a 1024x1024 int32 window is 4 MB, far beyond the 227 KB of shared
 // memory a Hopper block can use, so each window's labels live in device
 // memory and the kernels keep as much of the labelling as they can inside
 // shared-memory tiles.
 //
-// K1 and K3: block-based union-find (after Allegretti, Bolelli and Grana,
+// All three: block-based union-find (after Allegretti, Bolelli and Grana,
 // "Optimized Block-Based Algorithms to Label Connected Components on GPUs",
-// IEEE TPDS 2020), four launches each; the last three use programmatic
-// dependent launch (launch_after), which hides most of the gaps between
-// them.  A window's pixels are numbered in
+// IEEE TPDS 2020), four launches each; every launch
+// after the first uses programmatic dependent launch (launch_after), which
+// hides most of the gaps between them.  A window's pixels are numbered in
 // raster order (p = row * W + col); every union hooks the larger root under
 // the smaller, so every link points to a smaller index and the root of each
 // component is its minimum pixel: K2's label, and the pixel whose raster
@@ -40,7 +41,8 @@
 //
 //   local    one 256-thread block per tile: up to 8192 pixels, kTilePx / tw
 //            rows by tw = min(W, 1024) columns of one window (whole rows
-//            wherever W <= 1024: every refine bucket and the DB bitmap).
+//            wherever W <= 1024: every refine bucket and the DB bitmap at
+//            input 1024; tiles of 1024 and 512 columns side by side at 1536).
 //            Thread j loads the tile's 32-pixel word j (two 16-byte loads
 //            where the tile is one aligned run) and keeps it as a bitmask in
 //            shared memory.  Run pieces (a run cut at word and row ends) are
@@ -54,9 +56,9 @@
 //            raster order, so each tile root is the minimum of its piece of a
 //            component.  The passes over pixels then take one pixel a thread
 //            in raster order, so loads and stores coalesce.  The parent array
-//            gets one word a pixel: a tile root its own window index, any
-//            other foreground pixel ~(its tile root's window index) (< 0),
-//            background INT_MIN.  K3 also takes each run piece's minimum seed
+//            (K2's out) gets one word a pixel: a tile root its own window
+//            index, any other foreground pixel ~(its tile root's window
+//            index) (< 0), background INT_MIN.  K3 also takes each run piece's minimum seed
 //            with a shuffle over the warp (a warp's step is one word) and
 //            atomicMins it into its tile root's slot of out: one atomic a
 //            piece, inside the block.
@@ -67,9 +69,10 @@
 //            under the same rule with the whole mask in view, uniting tile
 //            roots through find_root and unite below, which only walk and
 //            hook the non-negative links of tile roots.
-//   resolve  K3, four pixels a thread: each tile root whose root is another
-//            pixel points itself at that root and atomicMins its tile minimum
-//            into the root's slot, so the global atomics number the tile
+//   resolve  K2 and K3, four pixels a thread (one 16-byte load): each tile
+//            root whose root is another pixel points itself at that root (K2
+//            in place in out, its parent array); K3 also atomicMins its tile
+//            minimum into the root's slot, so the global atomics number the tile
 //            roots, not the pixels.  K1: one 1024-thread block per raster
 //            chunk of 8192 pixels of a window (chunks, not tiles, so the rank
 //            is right whatever the tiling); each thread takes 8 neighbouring
@@ -78,16 +81,21 @@
 //            done), and one block scan ranks them; it writes -(rank in the chunk) at each
 //            root's slot of out and the chunk's root count to counts.
 //   gather   every pixel reaches its root in at most two reads (its own
-//            link, then its tile root's).  K3: out[p] = out[root], four
-//            pixels a thread.  K1: each block scans its window's chunk counts
-//            (at most 32) and writes ids[p] = rank + the root chunk's offset;
+//            link, then its tile root's).  K2: out[p] = the root, in place,
+//            four pixels a thread (one 16-byte load and store); a tile root's
+//            slot is rewritten with the root it holds, and any other pixel's
+//            slot is read only by its own thread.  K3: out[p] = out[root],
+//            four pixels a thread.  K1: each block scans its window's chunk
+//            counts (at most 32) and writes ids[p] = rank + the root chunk's offset;
 //            a root's own slot may already hold its final (positive) id when
 //            another pixel reads it, and both forms give the same id.
 //
-// K2 still runs the first version's three passes over device memory (init;
-// merge, where every foreground pixel unites with its W, NW, N and NE
-// neighbours through global atomics; flatten).  Moving it onto the local and
-// border phases is a change of its own, left for later.
+// K2's traffic is the mask in and links out (local), the links in (resolve),
+// the links in and roots out (gather): about 17 bytes a pixel against the 5
+// of its bound, besides the finds.  A single in-place pass instead of resolve
+// and gather, each pixel walking from its tile root, moves 4 bytes a pixel less
+// but was slower on an H100: every thread that meets a tile root walks its
+// chain and halves it with atomics (scripts/k2_variants.py times both).
 //
 // Termination.  A non-root always points to a strictly smaller index, so a
 // find walks at most H*W links (the tile's pixel count in shared memory).
@@ -151,50 +159,7 @@ __device__ void unite(int* parent, int a, int b, int limit, int* err) {
     atomicExch(err, 1);
 }
 
-__global__ void init_kernel(const uint8_t* __restrict__ mask, int* __restrict__ parent,
-                            int* __restrict__ out, int out_fill, long long total, int hw) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total) return;
-    int local = (int)(i % hw);
-    bool fg = mask[i] != 0;
-    parent[i] = fg ? local : CC_BIG;
-    if (out != nullptr) out[i] = fg ? out_fill : 0;
-}
-
-__global__ void merge_kernel(const uint8_t* __restrict__ mask, int* parent, long long total,
-                             int h, int w, int* err) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total || mask[i] == 0) return;
-    int hw = h * w;
-    long long base = i - i % hw;
-    int p = (int)(i - base);
-    int y = p / w, x = p - y * w;
-    const uint8_t* m = mask + base;
-    int* par = parent + base;
-    bool west = x > 0 && m[p - 1];
-    if (west) unite(par, p, p - 1, hw, err);
-    if (y > 0) {
-        int q = p - w;
-        bool north = m[q] != 0;
-        if (north) {
-            unite(par, p, q, hw, err);
-        } else {
-            // NW is linked through W, NE through N, when those are foreground
-            if (!west && x > 0 && m[q - 1]) unite(par, p, q - 1, hw, err);
-            if (x + 1 < w && m[q + 1]) unite(par, p, q + 1, hw, err);
-        }
-    }
-}
-
-__global__ void flatten_kernel(const uint8_t* __restrict__ mask, int* parent, long long total,
-                               int hw, int* err) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total || mask[i] == 0) return;
-    long long base = i - i % hw;
-    parent[i] = find_root(parent + base, (int)(i - base), hw, err);
-}
-
-// The later launches of K1 and K3 use programmatic dependent launch: a
+// The later launches of K1, K2 and K3 use programmatic dependent launch: a
 // kernel may start while the previous one in the stream drains, and waits
 // for that kernel's results (griddep_wait, its first statement) before it
 // reads them.  That hides most of the gap between the dependent launches.
@@ -219,7 +184,7 @@ inline unsigned int blocks_for(long long total) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K3: tiles
+// K1, K2 and K3: tiles
 // ---------------------------------------------------------------------------
 
 struct Tiling {
@@ -549,64 +514,74 @@ dim3 border_grid(const Tiling& t, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: resolve and gather
+// K2 and K3: resolve and gather, four pixels a thread
 // ---------------------------------------------------------------------------
 
-// Each tile root that is not its component's root points at the root and
-// takes its tile minimum there.  A tile root's slot of out is only read
-// here, the root's only written, so the two never race.  Four pixels a
-// thread, read with one 16-byte load where they lie in the array.
-__global__ void resolve_min_kernel(int* parent, int* out, long long total, int hw, int* err) {
+// The four pixels from i0 on into v: one 16-byte load where all four lie in
+// the array (the wrappers start every array on 16 bytes), background past
+// its end.  Returns whether the one load was taken.
+__device__ __forceinline__ bool load_quad(const int* a, long long i0, long long total, int v[4]) {
+    if (i0 + 4 <= total) {
+        int4 q = *reinterpret_cast<const int4*>(a + i0);
+        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+        return true;
+    }
+    for (int k = 0; k < 4; ++k) v[k] = i0 + k < total ? a[i0 + k] : kBackground;
+    return false;
+}
+
+__device__ __forceinline__ void store_quad(int* a, long long i0, long long total, bool whole, const int r[4]) {
+    if (whole) {
+        *reinterpret_cast<int4*>(a + i0) = make_int4(r[0], r[1], r[2], r[3]);
+    } else {
+        for (int k = 0; k < 4 && i0 + k < total; ++k) a[i0 + k] = r[k];
+    }
+}
+
+// Each tile root that is not its component's root points at the root.  K3
+// (kMin) also takes its tile minimum into the root's slot of out: a tile
+// root's slot of out is only read here, the root's only written, so the two
+// never race.
+template <bool kMin>
+__global__ void resolve_kernel(int* parent, int* out, long long total, int hw, int* err) {
     griddep_wait();
     long long i0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (i0 >= total) return;
     int v[4];
-    if (i0 + 4 <= total) {
-        int4 q = *reinterpret_cast<const int4*>(parent + i0);
-        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    } else {
-        for (int k = 0; k < 4; ++k) v[k] = i0 + k < total ? parent[i0 + k] : kBackground;
-    }
+    load_quad(parent, i0, total, v);
     for (int k = 0; k < 4; ++k) {
         if (v[k] < 0) continue;  // background, or not a tile root
         long long i = i0 + k, base = i - i % hw;
         int p = (int)(i - base);
-        int* par = parent + base;
-        int g = find_root(par, p, hw, err);
+        int g = find_root(parent + base, p, hw, err);
         if (g == p) continue;
-        atomicMin(out + base + g, out[i]);
-        par[p] = g;
+        if (kMin) atomicMin(out + base + g, out[i]);
+        parent[i] = g;
     }
 }
 
-// After the resolve every tile root points at its root, whose slot holds the
-// component's minimum.  Four pixels a thread; a root's slot is rewritten with
-// the value it holds, so the reads of it by other threads never race.
-__global__ void gather_min_kernel(const int* __restrict__ parent, int* out, long long total, int hw) {
+// After the resolve every tile root points at its root, so each foreground
+// pixel reaches it in at most two reads.  K2 (kRoots, in place: out is the
+// parent array) writes the root, 2**30 on the background; K3 the value of
+// the root's slot of out (the component's minimum), 0 on the background.
+// Either way a slot that other threads read is rewritten with the value it
+// holds, so those reads never race.
+template <bool kRoots>
+__global__ void gather_kernel(const int* parent, int* out, long long total, int hw) {
     griddep_wait();
     long long i0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (i0 >= total) return;
-    bool whole = i0 + 4 <= total;  // the four pixels are in the array, and 16-byte aligned
     int v[4], r[4];
-    if (whole) {
-        int4 q = *reinterpret_cast<const int4*>(parent + i0);
-        v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    } else {
-        for (int k = 0; k < 4; ++k) v[k] = i0 + k < total ? parent[i0 + k] : kBackground;
-    }
+    bool whole = load_quad(parent, i0, total, v);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        r[k] = 0;
+        r[k] = kRoots ? CC_BIG : 0;
         if (v[k] == kBackground) continue;
         long long base = (i0 + k) - (i0 + k) % hw;
         int g = v[k] >= 0 ? v[k] : parent[base + ~v[k]];
-        r[k] = out[base + g];
+        r[k] = kRoots ? g : out[base + g];
     }
-    if (whole) {
-        *reinterpret_cast<int4*>(out + i0) = make_int4(r[0], r[1], r[2], r[3]);
-    } else {
-        for (int k = 0; k < 4 && i0 + k < total; ++k) out[i0 + k] = r[k];
-    }
+    store_quad(out, i0, total, whole, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -711,16 +686,23 @@ ids_gather_kernel(const int* __restrict__ parent, const int* __restrict__ counts
 
 extern "C" {
 
-// K2.  out doubles as the parent array.  Returns cudaGetLastError().
+// K2.  out doubles as the parent array and starts on 16 bytes.  Returns
+// cudaGetLastError().
 int ctd_cc_window(const uint8_t* mask, int32_t* out, int32_t* err, int n, int h, int w,
                   cudaStream_t stream) {
     long long total = (long long)n * h * w;
     if (total == 0) return (int)cudaGetLastError();
-    unsigned int g = blocks_for(total);
-    init_kernel<<<g, kThreads, 0, stream>>>(mask, out, nullptr, 0, total, h * w);
-    merge_kernel<<<g, kThreads, 0, stream>>>(mask, out, total, h, w, err);
-    flatten_kernel<<<g, kThreads, 0, stream>>>(mask, out, total, h * w, err);
-    return (int)cudaGetLastError();
+    Tiling t = tiling(h, w);
+    unsigned int tiles = (unsigned int)(n * (long long)t.tiles);
+    local_kernel<false><<<tiles, kLocalThreads, 0, stream>>>(mask, nullptr, out, nullptr, h, w, t, err);
+    unsigned int quads = blocks_for((total + 3) / 4);  // four pixels a thread
+    cudaError_t rc = launch_after(border_kernel, border_grid(t, n), dim3(kThreads), stream, mask, out, h, w, t, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(resolve_kernel<false>, dim3(quads), dim3(kThreads), stream, out, (int*)nullptr, total,
+                          h * w, err);
+    if (rc == cudaSuccess)
+        rc = launch_after(gather_kernel<true>, dim3(quads), dim3(kThreads), stream, (const int*)out, out, total, h * w);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 // K3.  parent is int32 scratch of the same shape.  Returns cudaGetLastError().
@@ -734,9 +716,10 @@ int ctd_min_prop_window(const uint8_t* mask, const int32_t* seeds, int32_t* pare
     unsigned int quads = blocks_for((total + 3) / 4);  // four pixels a thread
     cudaError_t rc = launch_after(border_kernel, border_grid(t, n), dim3(kThreads), stream, mask, parent, h, w, t, err);
     if (rc == cudaSuccess)
-        rc = launch_after(resolve_min_kernel, dim3(quads), dim3(kThreads), stream, parent, out, total, h * w, err);
+        rc = launch_after(resolve_kernel<true>, dim3(quads), dim3(kThreads), stream, parent, out, total, h * w, err);
     if (rc == cudaSuccess)
-        rc = launch_after(gather_min_kernel, dim3(quads), dim3(kThreads), stream, (const int*)parent, out, total, h * w);
+        rc = launch_after(gather_kernel<false>, dim3(quads), dim3(kThreads), stream, (const int*)parent, out, total,
+                          h * w);
     return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 

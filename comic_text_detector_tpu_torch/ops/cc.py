@@ -13,10 +13,18 @@ pixel's component + 1, and 0 on background.  Its routes:
   second changed anything, read on the host;
 * ``"xla"``: the plain route, a hook-to-min union-find
   (``cc_kernels.cc_windows_local_plain``) on any device;
-* ``"auto"``: on the card, 8-connected maps of at most 1M elements take K2
-  and larger ones K4, as the JAX package routes on the TPU (rows wider than
-  K4's 4096 take K2; 4-connected maps take K4); on the CPU, the plain
-  route.
+* ``"auto"`` (``auto_backend``): on the card, 8-connected maps take K2 at
+  every size; 4-connected maps take K4 where its row kernel takes the width
+  (``MAX_ROW``) and the plain route where they are wider; on the CPU, the
+  plain route.
+
+The card's ``"auto"`` departs from the JAX routing, which on the TPU sends
+8-connected maps of more than 1M elements to the sweep fixpoint
+(``comic_text_detector_tpu/ops/cc.py::_use_vmem``).  That limit is the TPU
+kernel's scoped-VMEM budget, a schedule of that chip; K2 keeps its labels in
+device memory and takes any size, and every route gives the same labels, so
+the card takes the one that labels a map in one call rather than a host-read
+fixpoint of many rounds.
 
 ``component_stats`` compacts raw labels to ids 1..C-1 and reduces each
 component's bounding box, area and value sum.  Its minima and maxima are
@@ -37,7 +45,6 @@ from comic_text_detector_tpu_torch.constants import MAX_DB_COMPONENTS
 from comic_text_detector_tpu_torch.ops.cc_kernels import CC_BIG, cc_windows_local, cc_windows_local_plain
 from comic_text_detector_tpu_torch.ops.scan_kernels import MAX_ROW, cc_col_sweep, cc_row_sweep
 
-VMEM_MAX_ELEMS = 1024 * 1024  # "auto" sends larger maps to K4 (cc.py:_use_vmem on the TPU)
 BACKENDS = ("auto", "vmem", "pallas", "xla")
 _REST_SEGMENTS = 1024  # short segments that share the pixels outside every counted id
 
@@ -79,6 +86,18 @@ def _sweep_fixpoint(mask_u8: torch.Tensor, connectivity: int) -> torch.Tensor:
     raise RuntimeError(f"connected_components: no fixpoint after {rounds} rounds")
 
 
+def auto_backend(device_type: str, connectivity: int, h: int, w: int) -> str:
+    """The route ``backend="auto"`` takes for (N, h, w) maps on a device of
+    ``device_type``: K2 (``"vmem"``) for every 8-connected map on the card,
+    K4 (``"pallas"``) for 4-connected maps whose rows K4 takes, else the
+    plain route (``"xla"``)."""
+    if device_type != "cuda":
+        return "xla"
+    if connectivity == 8:
+        return "vmem"
+    return "pallas" if w <= MAX_ROW else "xla"
+
+
 def connected_components(mask: torch.Tensor, connectivity: int = 8, backend: str = "auto") -> torch.Tensor:
     """Label the set pixels of an (H, W) mask, or of each page of an
     (N, H, W) stack, bool or uint8.
@@ -98,12 +117,7 @@ def connected_components(mask: torch.Tensor, connectivity: int = 8, backend: str
     m = (mask != 0).to(torch.uint8).contiguous().view(-1, *mask.shape[-2:])
     h, w = m.shape[-2:]
     if backend == "auto":
-        if m.device.type == "cpu":
-            backend = "xla"
-        elif connectivity == 8 and (h * w <= VMEM_MAX_ELEMS or w > MAX_ROW):
-            backend = "vmem"
-        else:
-            backend = "pallas"
+        backend = auto_backend(m.device.type, connectivity, h, w)
     if backend == "xla":
         root = cc_windows_local_plain(m, connectivity)
     elif backend == "vmem":

@@ -21,10 +21,12 @@ it raises.  Both routes give the same ids.
 
 All three kernels are CUDA C++ (``csrc/cc.cu``), built by ``nvcc`` into a
 plain-C shared library on first use (``ops/cuda_build.py``) and bound with
-``ctypes``.  K1 and K3 label inside shared-memory tiles of a window, then
+``ctypes``.  All three label inside shared-memory tiles of a window, then
 join the tiles along their borders (the design is in the source's note);
 K1 also ranks the roots over raster chunks of ``IDS_CHUNK`` pixels, and its
-wrapper sizes that scratch with ``ids_chunk_count``.  Each wrapper launches
+wrapper sizes that scratch with ``ids_chunk_count``.  K2 runs the same
+local and border phases, then writes each pixel's root in place over its
+parent array, which is its output.  Each wrapper launches
 its kernel for a CUDA tensor, uses the plain PyTorch version beside it for
 a CPU tensor, and counts its launches in ``<wrapper>.launches``.
 """
@@ -161,7 +163,11 @@ def cc_ids_windows_local_plain(masks_u8: torch.Tensor) -> torch.Tensor:
 
 def launch_cc_window(masks_u8: torch.Tensor, out: torch.Tensor, err: torch.Tensor) -> None:
     """Enqueue K2 on the current stream (no count, no sync); raises if the
-    launch was refused.  ``err`` turns nonzero if a loop bound was hit."""
+    launch was refused.  ``out`` is also K2's parent array and starts on 16
+    bytes (its last phase moves four pixels at a time), as ``torch.empty``
+    gives it.  ``err`` turns nonzero if a loop bound was hit."""
+    if out.data_ptr() % 16:
+        raise ValueError("cc_windows_local: out must start on 16 bytes")
     n, h, w = masks_u8.shape
     lib = _lib()
     stream = torch.cuda.current_stream(masks_u8.device).cuda_stream

@@ -8,7 +8,7 @@ labelled on the device by one of two routes, as in the JAX package:
   raster-order ids straight from the CC kernels
   (``ops/cc_kernels.py::cc_ids_windows_local``, K2 -> cumsum -> K3);
 * labels (larger maps, or ``rank_ids=False``): raw labels from
-  ``ops/cc.py::connected_components`` (K4 on the card above 1M elements),
+  ``ops/cc.py::connected_components`` (K2 on the card at every size),
   then dense ids from the first appearances of each label in the sorted
   boundary table.
 

@@ -9,8 +9,8 @@ Counterpart of the JAX package's ``postproc/db_rep.py``::
 ``lines_map`` is a (B, 2, H, W) NCHW tensor or array (the port's layout and
 the reference's) or (B, H, W, 2) NHWC (the JAX package's); channel 0 is the
 shrink map either way.  Each map is labelled and reduced on ``device``
-(``ops/db_decode.py::db_device_decode``: K6, then K2 or, above 1M elements,
-K4 on the card), and its quads or polygons are built on the host.
+(``ops/db_decode.py::db_device_decode``: K6, then K2 on the card at every
+size), and its quads or polygons are built on the host.
 """
 
 from __future__ import annotations

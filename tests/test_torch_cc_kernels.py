@@ -4,6 +4,10 @@ for K1 at the refine's bucket shapes against the refine's own CPU route,
 ``refine._component_ids(fg, backend="grid")`` (interpret mode is too slow
 there).  Ids are integers with one right answer, so nothing is tolerated.
 
+A NumPy model of the CUDA K2's decomposition (its tiles, the border links
+between them, the in-place resolve and gather) is held bit for bit against
+K2's plain version where tiles sit side by side.
+
 On the CPU the port's wrappers run their plain PyTorch versions; the tests
 marked ``cuda`` hold the CUDA kernels against those plain versions and run
 only where a card is present.
@@ -209,6 +213,201 @@ def test_cpu_route_does_not_count_launches():
     assert counts() == before
 
 
+# ---------------------------------------------------------------------------
+# A NumPy model of the CUDA K2's decomposition (csrc/cc.cu): union-find in
+# tiles of at most 8192 pixels and 1024 columns, a border phase that unites
+# tile roots across tile edges, then a resolve and a gather that write each
+# pixel's root in place over the parent array.
+# ---------------------------------------------------------------------------
+
+_TILE_PX, _TILE_MAX_W = 8192, 1024  # kTilePx, kTileMaxW
+_BACKGROUND = -(2**31)  # kBackground: INT_MIN
+
+
+def _tiling(h: int, w: int):
+    """``tiling``: tile width and rows, tiles across a window, tiles a window."""
+    tw = min(w, _TILE_MAX_W)
+    rows = _TILE_PX // tw
+    across = -(-w // tw)
+    return tw, rows, across, across * -(-h // rows)
+
+
+def _tile_of(k: int, t, h: int, w: int):
+    """``tile_of`` for tile k of a window: first row and column, rows, width."""
+    tw, rows, across, _ = t
+    ty, tx = divmod(k, across)
+    y0, x0 = ty * rows, tx * tw
+    return y0, x0, min(rows, h - y0), min(tw, w - x0)
+
+
+def _model_local(m: np.ndarray, t) -> np.ndarray:
+    """The local phase on one (H, W) window: union-find over the links each
+    pixel takes inside its tile (W; N unless W and NW are set; NW unless N
+    or W is; NE unless N is; pixels outside the tile read as background),
+    then the parent encoding: a tile root (the minimum pixel of its piece of
+    a component) its own window index, any other foreground pixel ~(its tile
+    root), the background INT_MIN."""
+    h, w = m.shape
+    tw, rows = t[0], t[1]
+    y, x = np.mgrid[0:h, 0:w]
+    ly, lx = y % rows, x % tw
+    right_end = np.minimum((x // tw + 1) * tw, w)  # one past the tile's last column
+    p = np.pad(m, 1)
+    north = p[:-2, 1:-1] & (ly > 0)
+    west = p[1:-1, :-2] & (lx > 0)
+    nw = p[:-2, :-2] & (ly > 0) & (lx > 0)
+    ne = p[:-2, 2:] & (ly > 0) & (x + 1 < right_end)
+    idx = np.arange(h * w).reshape(h, w)
+    src, dst = [], []
+    for take, back in ((m & west, 1), (m & north & ~(west & nw), w), (m & nw & ~north & ~west, w + 1),
+                       (m & ne & ~north, w - 1)):
+        src.append(idx[take])
+        dst.append(idx[take] - back)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    parent = np.arange(h * w)
+    while True:  # hook-to-min rounds, each followed by full pointer jumping
+        rp, rq = parent[src], parent[dst]
+        hi, lo = np.maximum(rp, rq), np.minimum(rp, rq)
+        if not (hi != lo).any():
+            break
+        np.minimum.at(parent, hi, lo)
+        while not np.array_equal(parent[parent], parent):
+            parent = parent[parent]
+    fg = m.reshape(-1)
+    return np.where(~fg, _BACKGROUND, np.where(parent == np.arange(h * w), parent, ~parent))
+
+
+def _model_border(m: np.ndarray, par: list, t) -> None:
+    """The border phase on one window, in place on ``par`` (a list): each
+    tile's slots (its top row below the first tile row, its left column
+    beside a tile to the left, its right column beside one to the right)
+    take ``border_links`` under the local phase's rule with the whole mask
+    in view, uniting tile roots."""
+    h, w = m.shape
+    mf = m.reshape(-1).tolist()
+
+    def find(x):
+        while par[x] != x:
+            x = par[x]
+        return x
+
+    def tile_root(x):
+        return ~par[x] if par[x] < 0 else x
+
+    def unite(a, b):
+        a, b = find(tile_root(a)), find(tile_root(b))
+        if a != b:
+            par[max(a, b)] = min(a, b)
+
+    for k in range(t[3]):
+        y0, x0, rows, tw = _tile_of(k, t, h, w)
+        first = 1 if y0 > 0 else 0
+        slots = [(y0, x0 + i) for i in range(tw if y0 > 0 else 0)]
+        slots += [(y0 + first + i, x0) for i in range(rows - first if x0 > 0 else 0)]
+        slots += [(y0 + 1 + i, x0 + tw - 1) for i in range(rows - 1 if x0 + tw < w else 0)]
+        for yy, xx in slots:
+            q = yy * w + xx
+            if not mf[q]:
+                continue
+            west = xx > 0 and mf[q - 1]
+            if west and xx == x0:
+                unite(q, q - 1)
+            if yy == 0:
+                continue
+            n_ = q - w
+            above = yy == y0
+            nw = xx > 0 and mf[n_ - 1]
+            if mf[n_]:
+                if above and not (west and nw):
+                    unite(q, n_)
+                continue
+            if nw and not west and (above or xx == x0):
+                unite(q, n_ - 1)
+            if xx + 1 < w and mf[n_ + 1] and (above or xx + 1 == x0 + tw):
+                unite(q, n_ + 1)
+
+
+def _quad_groups(total: int, rng):
+    """The pixels of four-pixel threads, the threads in groups run one after
+    another in a random order: each group reads the array as the groups
+    before it left it."""
+    quads = rng.permutation(-(-total // 4))
+    for group in np.array_split(quads, 7):
+        i = (group[:, None] * 4 + np.arange(4)).reshape(-1)
+        yield i[i < total]
+
+
+def _model_resolve_gather(out: np.ndarray, hw: int, rng) -> None:
+    """The resolve and the gather, in place on the flat (N*H*W,) parent
+    array: each tile root that is not its component's root points itself at
+    the root; then each foreground pixel takes its tile root's slot, the
+    background 2**30."""
+    for i in _quad_groups(out.size, rng):
+        i = i[out[i] >= 0]  # tile roots
+        base = i - i % hw
+        cur = i - base
+        while True:
+            nxt = out[base + cur]
+            if np.array_equal(nxt, cur):
+                break
+            cur = nxt
+        out[i] = cur
+    for i in _quad_groups(out.size, rng):
+        v = out[i]
+        linked = (v < 0) & (v != _BACKGROUND)
+        tile_root_slot = out[i - i % hw + np.where(linked, ~v, 0)]
+        out[i] = np.where(v == _BACKGROUND, K.CC_BIG, np.where(linked, tile_root_slot, v))
+
+
+def _model_k2(masks: np.ndarray, seed: int = 0) -> np.ndarray:
+    n, h, w = masks.shape
+    t = _tiling(h, w)
+    out = np.empty(n * h * w, np.int64)
+    for i in range(n):
+        m = masks[i] > 0
+        par = _model_local(m, t).tolist()
+        _model_border(m, par, t)
+        out[i * h * w:(i + 1) * h * w] = par
+    _model_resolve_gather(out, h * w, np.random.default_rng(seed))
+    return out.reshape(n, h, w).astype(np.int32)
+
+
+def test_model_tiling_matches_the_kernel_geometry():
+    """Tiles of 8192 pixels, at most 1024 columns, side by side beyond."""
+    assert _tiling(1024, 1024) == (1024, 8, 1, 128)
+    assert _tiling(1536, 1536) == (1024, 8, 2, 384)
+    assert _tiling(9, 2049) == (1024, 8, 3, 6)
+    assert _tiling(17, 1025) == (1024, 8, 2, 6)
+    assert _tiling(40, 72) == (72, 113, 1, 1)
+    t = _tiling(20, 1100)
+    assert [_tile_of(k, t, 20, 1100) for k in range(t[3])] == [
+        (0, 0, 8, 1024), (0, 1024, 8, 76), (8, 0, 8, 1024), (8, 1024, 8, 76), (16, 0, 4, 1024), (16, 1024, 4, 76)]
+
+
+K2_MODEL_SHAPES = [(2, 20, 1100), (1, 9, 2049), (3, 17, 1025), (2, 11, 1536)]
+
+
+@pytest.mark.parametrize("kind", range(7))
+@pytest.mark.parametrize("shape", K2_MODEL_SHAPES)
+def test_k2_model_matches_plain(shape, kind):
+    """The model of K2's tiles, border, resolve and gather gives
+    ``cc_windows_local_plain``'s labels bit for bit, where tiles sit side by
+    side (the seam at x = 1024 crossed by chains linked only through NE or
+    NW) and tile rows end inside the window.  Each stack's pages differ."""
+    n, h, w = shape
+    kinds = list(_border_windows(h, w)) + [(np.random.default_rng(h * w).random((h, w)) < 0.45).astype(np.uint8)]
+    masks = np.stack([kinds[(kind + i) % len(kinds)] for i in range(n)])
+    got = _model_k2(masks, seed=kind)
+    np.testing.assert_array_equal(got, K.cc_windows_local_plain(torch.from_numpy(masks)).numpy())
+
+
+def test_k2_launcher_refuses_unaligned_out():
+    masks = torch.zeros((1, 4, 4), dtype=torch.uint8)
+    out = torch.empty(17, dtype=torch.int32)[1:].view(1, 4, 4)
+    with pytest.raises(ValueError):
+        K.launch_cc_window(masks, out, torch.zeros(1, dtype=torch.int32))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -237,3 +436,16 @@ def test_k1_matches_plain_version_on_card(cuda_device, bucket):
     got = K.cc_ids_windows_local(masks)
     assert K.cc_ids_fused.launches == before + 1
     assert torch.equal(got, K.cc_ids_windows_local_plain(masks))
+
+
+@pytest.mark.cuda
+def test_k2_matches_plain_version_on_card_at_1536(cuda_device):
+    """K2 on the 1536 batch's shape: tiles of 1024 and 512 columns side by
+    side, pages that differ, each launch counted."""
+    h = w = 1536
+    kinds = list(_border_windows(h, w)) + [(np.random.default_rng(12).random((h, w)) < 0.45).astype(np.uint8)]
+    masks = torch.from_numpy(np.stack([kinds[i] for i in (0, 3, 4, 6)])).to(cuda_device)  # comb, NW, NE, noise
+    before = K.cc_windows_local.launches
+    got = K.cc_windows_local(masks)
+    assert K.cc_windows_local.launches == before + 1
+    assert torch.equal(got, K.cc_windows_local_plain(masks))

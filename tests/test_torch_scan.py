@@ -240,6 +240,37 @@ def test_connected_components_routes_match_jax(connectivity, kind):
         np.testing.assert_array_equal(_canon(got), _canon(sp), err_msg=backend)
 
 
+@pytest.mark.parametrize("device, connectivity, h, w, route", [
+    ("cuda", 8, 1536, 1536, "vmem"),
+    ("cuda", 8, 1024, 1024, "vmem"),
+    ("cuda", 8, 2048, 2048, "vmem"),
+    ("cuda", 8, 64, 5000, "vmem"),
+    ("cuda", 4, 1536, 1536, "pallas"),
+    ("cuda", 4, 64, S.MAX_ROW, "pallas"),
+    ("cuda", 4, 64, 5000, "xla"),
+    ("cpu", 8, 1536, 1536, "xla"),
+    ("cpu", 4, 1536, 1536, "xla"),
+    ("cpu", 4, 64, 5000, "xla"),
+])
+def test_auto_backend_routes(device, connectivity, h, w, route):
+    """``backend="auto"``: on the card every 8-connected map takes K2, a
+    4-connected one K4 where its row kernel takes the width and the plain
+    route where it is wider; on the CPU the plain route."""
+    assert tcc.auto_backend(device, connectivity, h, w) == route
+
+
+def test_connected_components_4_connected_wide_rows_match_jax():
+    """A 4-connected map wider than K4's rows (which ``auto`` sends to the
+    plain route on the card) gets the JAX function's labels."""
+    rng = np.random.default_rng(21)
+    m = rng.random((3, 5000)) < 0.55
+    m[1, ::7] = True
+    ref = np.asarray(jcc.connected_components(jnp.asarray(m), 4, "xla"))
+    for backend in ("auto", "xla"):
+        got = tcc.connected_components(torch.from_numpy(m), 4, backend).numpy()
+        np.testing.assert_array_equal(got, ref, err_msg=backend)
+
+
 def test_connected_components_stack_and_rounds():
     """A (N, H, W) stack labels each page on its own; the sweep route counts
     its rounds, two per changed test."""
