@@ -21,9 +21,11 @@ before it starts so a stall shows where it stopped:
    through NE or NW only (``seam_chains``) at widths 1023, 1024, 1025, 1536,
    2047, 2048 and 2049 and heights 1, 13 and 37, on 4-page stacks whose
    pages differ at the seams, and 20 times on (4, 1536, 1536) noise;
-   K6 on edge values (every k/255 and its float32 neighbours, the
-   threshold's neighbours) and on shapes that are not a multiple of 4 or
-   not 16-byte aligned;
+   K6 at the seams of its decomposition (``check_k6_seams``): edge values
+   (every k/255 and its float32 neighbours, the threshold's neighbours) on
+   planes of 1, 15, 16, 17, 4095 and 4097 elements, B = 1 and 5, read in
+   place as x[:, 0] and x[:, 1] of (B, 2, H, W) stacks (page strides that
+   break 16-byte alignment), from unaligned bases and contiguous;
 4. the single-page paths, each on the same seeded synthetic pages with
    every kernel's launch count set to 0 just before and read just after:
    ``TextDetector("data/flagship_r2.npz", input_size=1024)`` (host refine)
@@ -41,7 +43,11 @@ before it starts so a stall shows where it stopped:
    masks, warmed on 4 pages, then 12 distinct seeded pages in three shapes
    with every launch count set to 0 just before and read just after;
    pages/s, ms/page and launches per page; K6 against its plain version
-   on the batch's own mask and shrink-map stacks, and its time; K2 and K3
+   on the batch's own mask stack and on its DB maps as the stream reads
+   them (the view ``lines[:, 0]``, in place), each function's time a
+   launch on the card's clock (CUPTI) and on events, from device memory,
+   in the L2, on the view, and on a contiguous copy of the view then K6
+   (the stream's form before the view was read in place); K2 and K3
    timed on the batch's (4, 1024, 1024) DB bitmaps, K3 with the ids as
    seeds and with the split route's own seeds (root ranks, 2**30 elsewhere),
    K2 also from device memory (copies cycled) with its time by kernel;
@@ -80,14 +86,18 @@ before it starts so a stall shows where it stopped:
    with the device refine + packed; repeat runs bit-identical; the batch's
    DB decode bit-equal through K4, K2 and the plain route;
 12. ``SegDetectorRepresenter`` in quad and polygon mode on that net's DB
-   maps, the card against the port's CPU route; then K4 and K5 timed at the
-   path's shapes beside their bounds, their plain versions and, where one
-   exists, a single PyTorch call computing the same function; K4's column
+   maps, the card against the port's CPU route; then K4, K5 and K6 (on the
+   1536 batch's mask stack and its view ``lines[:, 0]``) timed at the
+   path's shapes on the card's clock and on events, beside their bounds,
+   their plain versions and, where one exists, a single PyTorch call
+   computing the same function; K4's column
    kernel also at (4, 2048, 2048), the batch's bitmaps scaled up; K2 from
    device memory on the batch's bitmaps and at (4, 2048, 2048), with its
    time by kernel, and ``connected_components`` through ``"auto"`` on both.
 
-Prints ``{"kernels": [...]}`` on a line of its own, and as its last line
+Prints ``{"kernels": [...]}`` on a line of its own (every kernel with its
+event ``ms`` and its ``device_ms`` a launch on the card's clock), and as its
+last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
 not 0; without a CUDA device, or outside a checkout, it exits 1 before
 printing any result.
@@ -193,22 +203,36 @@ def cuda_ms_cycle(fn, args, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase_ms(fn, reps: int = 20) -> dict:
+def kernel_phase_ms(fn, reps: int = 20, args=((),)) -> dict:
     """Device ms a call of ``fn`` spends in each CUDA kernel it launches, by
-    kernel name (CUPTI times through torch.profiler, over ``reps`` calls)."""
+    kernel name (CUPTI times through torch.profiler, over ``reps`` calls),
+    cycling through ``args`` (one tuple per call) as :func:`cuda_ms_cycle`
+    does; the time of a launch is the mean over the launches the trace
+    holds.  Empty if three traces in a row hold none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    fn(*args[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]:
-            e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(3):  # a trace that holds none of the launches is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*args[i % len(args)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # a kernel of the call appears about ``reps`` times (a multiple for
+        # one launched more than once a call); records of other work that
+        # reach the trace appear a few times, and are left out
+        ours = [e for e in events if e.count >= reps // 2]
+        if len(ours) < len(events):
+            phase("  profiler: left out " + ", ".join(f"{e.key[:50]} x{e.count}" for e in events if e not in ours))
+        if ours:
+            return {e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]:
+                    e.self_device_time_total / e.count * max(1, round(e.count / reps)) / 1e3 for e in ours}
+        phase("  profiler: the trace held no launch of the call; taken again")
+        time.sleep(0.1)
+    return {}
 
 
 def time_k2(bitmaps, copies: int, plain_ms: float, smi: str) -> dict:
@@ -232,6 +256,88 @@ def time_k2(bitmaps, copies: int, plain_ms: float, smi: str) -> dict:
           f"{bound:.5f} ms (5 B a pixel at 3.35 TB/s), plain {plain_ms:.2f} ms; by kernel (ms a launch): "
           + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()) + f"; {smi}")
     return {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms, "phase_ms": by_kernel}
+
+
+def device_ms(fn, args=((),), reps: int = 40):
+    """Device ms a call of ``fn``: the CUPTI times of every kernel it
+    launches, summed (:func:`kernel_phase_ms`); None where the profiler
+    recorded none."""
+    return sum(kernel_phase_ms(fn, reps, args).values()) or None
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def time_k6(mask_stack, lines, thresh: float, smi: str) -> dict:
+    """Both K6 functions at one batch's shapes: bit for bit against their
+    plain versions on the (B, S, S) mask stack, on the stream's own view
+    ``lines[:, 0]`` of the (B, 2, S, S) DB maps (read in place) and on a
+    contiguous copy of it; then each function's time a launch on the card's
+    clock (CUPTI) and on CUDA events over the Python launch loop, cycling
+    contiguous copies that pass 150 MB (the 50 MB L2 three times); its
+    device time with the input in the L2, on the stream's view (in the L2
+    and cycling as many copies of the DB maps), and on the stream's form
+    before the view was read in place (a contiguous copy of the view, then
+    K6); the plain version's time and one
+    library call's, on events and on the card's clock (from device memory
+    and in the L2); the bound (5 bytes a pixel).  Prints one line a
+    function."""
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import finalize as K6
+
+    view = lines[:, 0]
+    shrink = view.contiguous()
+    kernel = {"mask_to_u8": K6.mask_to_u8, "binarize": lambda x: K6.binarize(x, thresh)}
+    plain = {"mask_to_u8": K6.mask_to_u8_plain, "binarize": lambda x: K6.binarize_plain(x, thresh)}
+    library = {"mask_to_u8": lambda x: x.mul(255).to(torch.uint8),
+               "binarize": lambda x: torch.gt(x, thresh).view(torch.uint8)}
+    launch = {"mask_to_u8": K6.launch_mask_to_u8,
+              "binarize": lambda x, o, *layout: K6.launch_binarize(x, thresh, o, *layout)}
+    for name in kernel:
+        for label, x in (("the mask stack", mask_stack), ("the stream's view lines[:, 0]", view),
+                         ("a contiguous copy of the view", shrink)):
+            got, ref = kernel[name](x), plain[name](x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 {name} differs from its plain version on {label} {tuple(x.shape)}: "
+                                     f"{int((got != ref).sum())} values")
+    out = torch.empty(shrink.shape, dtype=torch.uint8, device=shrink.device)
+    n, plane = shrink.shape[0], shrink[0].numel()
+    # copies whose inputs and outputs together pass 150 MB, three times the
+    # L2: 8 at (4, 1024, 1024), 4 at (4, 1536, 1536)
+    copies = max(2, -(-150_000_000 // (shrink.numel() * 5)))
+    cycled = [(shrink.clone(), out, n, plane, plane) for _ in range(copies)]
+    views = [(lines.clone()[:, 0], out, n, plane, lines.stride(0)) for _ in range(copies)]
+    res = {}
+    for name in kernel:
+        go = launch[name]
+        r = {
+            "ms": cuda_ms_cycle(go, cycled, 200),
+            "device_ms": device_ms(go, cycled),
+            "device_ms_l2": device_ms(go, cycled[:1]),
+            "device_ms_view_l2": device_ms(go, views[:1]),
+            "device_ms_view": device_ms(go, views),
+            "device_ms_copy_then_k6_l2": device_ms(lambda v, o, *_: go(v.contiguous(), o, n, plane, plane), views[:1]),
+            "device_ms_copy_then_k6": device_ms(lambda v, o, *_: go(v.contiguous(), o, n, plane, plane), views),
+            "plain_ms": cuda_ms_cycle(lambda x, *_: plain[name](x), cycled, 50),
+            "library_ms": cuda_ms_cycle(lambda x, *_: library[name](x), cycled, 50),
+            "library_device_ms": device_ms(lambda x, *_: library[name](x), cycled),
+            "library_device_ms_l2": device_ms(lambda x, *_: library[name](x), cycled[:1]),
+            "bound_ms": shrink.numel() * 5 / H100_BYTES_PER_S * 1e3,
+        }
+        res[name] = r
+        phase(f"  K6 {name} on {tuple(shrink.shape)}: {fmt(r['device_ms'])} ms a launch on the card's clock from "
+              f"device memory ({copies} copies cycled; {r['ms']:.4f} on events over the Python loop), "
+              f"{fmt(r['device_ms_l2'])} in the L2; on the stream's view lines[:, 0] {fmt(r['device_ms_view_l2'])} in "
+              f"the L2 / {fmt(r['device_ms_view'])} from device memory, a copy then K6 "
+              f"{fmt(r['device_ms_copy_then_k6_l2'])} / {fmt(r['device_ms_copy_then_k6'])}; plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f} ({fmt(r['library_device_ms'])} on the card's clock, "
+              f"{fmt(r['library_device_ms_l2'])} in the L2); bound {r['bound_ms']:.5f} ms (5 B a pixel at 3.35 TB/s); "
+              f"{smi}")
+    del cycled, views
+    return res
 
 
 def page_time_of(detector, pages) -> float:
@@ -273,42 +379,55 @@ def same_outputs(x, y) -> bool:
     )
 
 
-def check_k6_edges(dev) -> dict:
-    """K6 against its plain version on edge values: 0, 1, every k/255 and
-    its float32 neighbours; the threshold 0.3 and its neighbours; shapes
-    whose size is not a multiple of 4, and an input that is not 16-byte
-    aligned (the kernels' scalar loop).  Returns the max abs errors."""
+def check_k6_seams(dev) -> dict:
+    """Both K6 functions bit for bit against their plain versions at the
+    seams of the kernel's decomposition (16 elements a thread from each
+    plane's first 16-byte aligned output byte; head and tail by the plane's
+    first block): every value is an edge value (0, 1, every k/255 and its
+    float32 neighbours, the threshold 0.3 and its neighbours), on planes of
+    1, 15, 16, 17, 4095 and 4097 elements in 1- and 5-page stacks, read in
+    place as ``x[:, 0]`` and ``x[:, 1]`` of (B, 2, H, W) stacks (page
+    strides and bases that break 16-byte alignment where H * W is odd or
+    not a multiple of 4), from a base 1, 2 and 3 elements past an aligned
+    one, and contiguous; then seeded maps at (1, 37, 1001) and (4, 1024,
+    1024), whole and from an unaligned base.  Returns the max abs errors and
+    the number of cases."""
     import numpy as np
     import torch
 
     from comic_text_detector_tpu_torch.ops import finalize as K6
 
     k = np.arange(256, dtype=np.float32) / np.float32(255)
-    edge = np.concatenate([k, np.nextafter(k, np.float32(2)), np.nextafter(k, np.float32(-1)),
-                           np.float32([0.0, 1.0])]).clip(0, 1).astype(np.float32)
     t = np.float32(0.3)
-    around_t = np.float32([t, np.nextafter(t, np.float32(1)), np.nextafter(t, np.float32(0)), 0.0, 1.0])
-    rng = np.random.default_rng(3)
-    cases = {
-        "mask_to_u8 edges": (edge, None),
-        "mask_to_u8 (1, 37, 1001)": (rng.random((1, 37, 1001), dtype=np.float32), None),
-        "mask_to_u8 (4, 1024, 1024)": (rng.random((4, 1024, 1024), dtype=np.float32), None),
-        "binarize edges": (np.resize(around_t, 1003), 0.3),
-        "binarize (1, 37, 1001)": (rng.random((1, 37, 1001), dtype=np.float32), 0.3),
-    }
-    errs = {"mask_to_u8": 0, "binarize": 0}
-    for name, (x_np, thresh) in cases.items():
-        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
-        for label, xin in (("", x), (" unaligned", x.reshape(-1)[1:])):
-            if thresh is None:
-                got, ref, key = K6.mask_to_u8(xin), K6.mask_to_u8_plain(xin), "mask_to_u8"
-            else:
-                got, ref, key = K6.binarize(xin, thresh), K6.binarize_plain(xin, thresh), "binarize"
+    edge = np.concatenate([k, np.nextafter(k, np.float32(2)), np.nextafter(k, np.float32(-1)), np.float32([0.0, 1.0]),
+                           np.float32([t, np.nextafter(t, np.float32(1)), np.nextafter(t, np.float32(0))])])
+    edge = edge.clip(0, 1).astype(np.float32)
+    errs = {"mask_to_u8": 0, "binarize": 0, "cases": 0}
+
+    def hold(name, x):
+        for key, got, ref in (("mask_to_u8", K6.mask_to_u8(x), K6.mask_to_u8_plain(x)),
+                              ("binarize", K6.binarize(x, 0.3), K6.binarize_plain(x, 0.3))):
             torch.cuda.synchronize()
-            err = int((got.int() - ref.int()).abs().max())
-            if err != 0:
-                raise AssertionError(f"K6 {name}{label} differs from its plain version: {int((got != ref).sum())} values")
-            errs[key] = max(errs[key], err)
+            if got.shape != x.shape or not got.is_contiguous() or not torch.equal(got, ref):
+                raise AssertionError(f"K6 {key} differs from its plain version on {name} {tuple(x.shape)} "
+                                     f"strides {x.stride()}: {int((got != ref).sum())} values")
+        errs["cases"] += 1
+
+    rng = np.random.default_rng(3)
+    for h, w in ((1, 1), (3, 5), (4, 4), (1, 17), (63, 65), (17, 241)):
+        for b in (1, 5):
+            n = b * 2 * h * w
+            flat = torch.from_numpy(rng.permutation(np.resize(edge, n + 3)).astype(np.float32)).to(dev)
+            stack = flat[:n].view(b, 2, h, w)
+            hold(f"x[:, 0] of a ({b}, 2, {h}, {w}) stack", stack[:, 0])
+            hold(f"x[:, 1] of a ({b}, 2, {h}, {w}) stack", stack[:, 1])
+            hold(f"a contiguous ({b}, {h}, {w}) stack", flat[: b * h * w].view(b, h, w))
+            for off in (1, 2, 3):
+                hold(f"x[:, 0] from a base {off} elements on", flat[off:off + n].view(b, 2, h, w)[:, 0])
+    for shape in ((1, 37, 1001), (4, 1024, 1024)):
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+        hold("seeded map", x)
+        hold("seeded map from an unaligned base", x.reshape(-1)[1:])
     return errs
 
 
@@ -747,8 +866,9 @@ def main() -> None:
     border_errs = check_tile_borders(dev, [(bh, bw, 4 * slots) for bh, bw, slots, _cap in R.BUCKETS])
     k2_seam_err = check_k2_seams(dev)
 
-    k6_edge_errs = check_k6_edges(dev)
-    phase("  K6 mask_to_u8 and binarize bit-equal on edge values, odd and unaligned shapes")
+    k6_seam_errs = check_k6_seams(dev)
+    phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
+          "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
     phase("4/12 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
@@ -1029,7 +1149,7 @@ def main() -> None:
     with torch.no_grad():
         lbs = torch.stack([letterbox_device_u8(torch.from_numpy(p).to(dev), 1024) for p in spages[:4]])
         blks_b, mask_b, lines_b = run_net(bdet.model, lbs)
-        shrink0 = lines_b[:, 0].to(torch.float32).contiguous()
+        shrink0 = lines_b[:, 0]  # the stream's own view of the DB maps, read in place
         dec = [db_decode_batch(shrink0, 0.3) for _ in range(3)]
     torch.cuda.synchronize()
     for d in dec[1:]:
@@ -1095,31 +1215,12 @@ def main() -> None:
         raise AssertionError("a source error did not reach the consumer")
     phase("  a source error raised mid-stream reached the consumer")
 
-    # the kernels at the batch path's own shapes: K6 on the batch's mask and
-    # shrink-map stacks, K2 and K3 on its DB bitmap stack
+    # the kernels at the batch path's own shapes: K6 on the batch's mask
+    # stack and DB maps (the stream's view lines_b[:, 0] among them), K2 and
+    # K3 on its DB bitmap stack
     mask_stack = mask_b[:, 0].contiguous()
-    got, ref = K6.mask_to_u8(mask_stack), K6.mask_to_u8_plain(mask_stack)
-    got_b, ref_b = K6.binarize(shrink0, 0.3), K6.binarize_plain(shrink0, 0.3)
-    torch.cuda.synchronize()
-    k6m_err = int((got.int() - ref.int()).abs().max())
-    k6b_err = int((got_b.int() - ref_b.int()).abs().max())
-    if k6m_err or k6b_err:
-        raise AssertionError(f"K6 differs from its plain version on the batch's stacks ({k6m_err}, {k6b_err})")
-    k6_out = torch.empty(mask_stack.shape, dtype=torch.uint8, device=dev)
-    masks4 = [(mask_stack.clone(), k6_out) for _ in range(4)]  # 67 MB of inputs: more than the L2
-    shrinks4 = [(shrink0.clone(), 0.3, k6_out) for _ in range(4)]
-    k6m_ms = cuda_ms_cycle(K6.launch_mask_to_u8, masks4, 200)
-    k6b_ms = cuda_ms_cycle(K6.launch_binarize, shrinks4, 200)
-    k6m_plain = cuda_ms_cycle(lambda x, _o: K6.mask_to_u8_plain(x), masks4, 50)
-    k6b_plain = cuda_ms_cycle(lambda x, t, _o: K6.binarize_plain(x, t), shrinks4, 50)
-    k6m_lib = cuda_ms_cycle(lambda x, _o: x.mul(255).to(torch.uint8), masks4, 50)
-    k6b_lib = cuda_ms_cycle(lambda x, t, _o: torch.gt(x, t).view(torch.uint8), shrinks4, 50)
-    k6_bytes = mask_stack.numel() * (4 + 1)  # float32 in, uint8 out
-    phase(f"  K6 on (4, 1024, 1024): mask_to_u8 {k6m_ms:.4f} ms (plain {k6m_plain:.4f}, library {k6m_lib:.4f}), "
-          f"binarize {k6b_ms:.4f} ms (plain {k6b_plain:.4f}, library {k6b_lib:.4f}), "
-          f"bound {k6_bytes / H100_BYTES_PER_S * 1e3:.4f} ms")
-
-    bitmaps = got_b
+    k6 = {"1024": time_k6(mask_stack, lines_b, 0.3, smi)}
+    bitmaps = K6.binarize(lines_b[:, 0], 0.3)
     db_errs_b = hold("DB bitmap stack of the batch", bitmaps.cpu().numpy())
     ids_b = K.cc_ids_windows_local(bitmaps)
     seeds_b = torch.where(ids_b > 0, ids_b, K.CC_BIG).to(torch.int32)
@@ -1193,8 +1294,8 @@ def main() -> None:
     bdet_big = BatchTextDetector(variables, half=True, **dict(bkw, input_size=big))
     with torch.no_grad():
         lbs_big = torch.stack([letterbox_device_u8(torch.from_numpy(p).to(dev), big) for p in hpages[:4]])
-        _, _, lines_big = run_net(bdet_big.model, lbs_big)
-        shrink_big = lines_big[:, 0].to(torch.float32).contiguous()
+        _, mask_big, lines_big = run_net(bdet_big.model, lbs_big)
+        shrink_big = lines_big[:, 0]  # the stream's own view of the DB maps, read in place
     bitmaps_big = K6.binarize(shrink_big, bdet_big.db_thresh)
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
@@ -1343,6 +1444,7 @@ def main() -> None:
     k4_args = [(lab0.clone(), bitmaps_big.clone(), k4_out) for _ in range(2)]  # 2 x 47 MB: more than the L2
     k4r_ms = cuda_ms_cycle(K4.launch_row_sweep, k4_args, 100)
     k4c_ms = cuda_ms_cycle(K4.launch_col_sweep, k4_args, 100)
+    k4r_dev, k4c_dev = device_ms(K4.launch_row_sweep, k4_args), device_ms(K4.launch_col_sweep, k4_args)
     k4r_plain = cuda_ms(lambda: K4.cc_row_sweep_plain(lab0, bitmaps_big), 5)
     k4c_plain = cuda_ms(lambda: K4.cc_col_sweep_plain(lab0, bitmaps_big), 5)
     k4_bytes = bitmaps_big.numel() * (4 + 1 + 4)  # labels and mask in, labels out
@@ -1350,8 +1452,9 @@ def main() -> None:
     k4_rounds = CC.connected_components.rounds
     cc_k2_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "vmem"), 3)
     cc_plain_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "xla"), 3)
-    phase(f"  K4 on {tuple(bitmaps_big.shape)}: row {k4r_ms:.4f} ms (plain {k4r_plain:.3f}), column {k4c_ms:.4f} ms "
-          f"(plain {k4c_plain:.3f}), bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none; {smi}")
+    phase(f"  K4 on {tuple(bitmaps_big.shape)} (2 copies cycled), ms a launch on the card's clock (events over the "
+          f"Python loop): row {fmt(k4r_dev)} ({k4r_ms:.4f}), plain {k4r_plain:.3f}; column {fmt(k4c_dev)} "
+          f"({k4c_ms:.4f}), plain {k4c_plain:.3f}; bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none; {smi}")
     # the column kernel at input_size 2048: the batch's bitmaps scaled up by
     # nearest neighbour, 2 copies of 4 x 2048 x 2048 cycled (2 x 84 MB)
     s2 = 2048
@@ -1382,6 +1485,9 @@ def main() -> None:
     phase(f"  connected_components through auto (K2): {cc_auto_ms['1536']:.3f} ms on {tuple(bitmaps_big.shape)}, "
           f"{cc_auto_ms['2048']:.3f} ms on {tuple(bitmaps_2048.shape)}; equal to the plain route; {smi}")
 
+    # K6 at the 1536 batch's shapes, on its mask stack and its own DB maps
+    k6["1536"] = time_k6(mask_big[:, 0].contiguous(), lines_big, bdet_big.db_thresh, smi)
+
     # K5 at 1536 x 1536, uint8 and float32; the library call for dilate is one
     # max_pool2d on a replicate-padded float32 input, for erode one on the
     # negated padded input (the same minimum, negated); the cross has none
@@ -1393,6 +1499,7 @@ def main() -> None:
         for op, name in ((0, "erode3x3"), (1, "dilate3x3"), (2, "erode3x3_ellipse")):
             k5[(name, dtype)] = {
                 "ms": cuda_ms_cycle(lambda a, o, op=op: K5.launch_morph(a, o, op), xs, 200),
+                "device_ms": device_ms(lambda a, o, op=op: K5.launch_morph(a, o, op), xs),
                 "plain_ms": cuda_ms(lambda: getattr(K5, name + "_plain")(x), 20),
                 "bound_ms": x.numel() * x.element_size() * 2 / H100_BYTES_PER_S * 1e3,
             }
@@ -1403,8 +1510,8 @@ def main() -> None:
     k5[("erode3x3", "float32")]["library_ms"] = cuda_ms(lambda: F.max_pool2d(neg_padded, 3, 1), 200)
     if not torch.equal(F.max_pool2d(padded, 3, 1)[0, 0], K5.dilate3x3(xf)):
         raise AssertionError("max_pool2d on the replicate-padded input is not dilate3x3")
-    phase("  K5 at 1536x1536 (ms): " + ", ".join(
-        f"{n} {d} {v['ms']:.4f} (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}"
+    phase("  K5 at 1536x1536, ms a launch on the card's clock (events over the Python loop): " + ", ".join(
+        f"{n} {d} {fmt(v['device_ms'])} ({v['ms']:.4f}; plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}"
         + (f", library {v['library_ms']:.4f})" if "library_ms" in v else ")") for (n, d), v in k5.items()))
 
     kernels = [
@@ -1413,6 +1520,7 @@ def main() -> None:
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:335",
             "launches": launches_b["K1"], "max_abs_err": max(k1_err, border_errs["K1"]), "ms": k1_ms,
+            "device_ms": sum(k1_phases.values()) or None,
             "plain_ms": k1_plain,
             "bound_ms": k1_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
@@ -1421,7 +1529,8 @@ def main() -> None:
             "source": "comic_text_detector_tpu_torch/csrc/cc.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:300",
             "launches": launches_b["K2"], "max_abs_err": max(db_errs["K2"], db_errs_b["K2"], k2_seam_err),
-            "ms": k2_timed["1024"]["ms"], "plain_ms": k2b_plain, "bound_ms": pxb * 5 / H100_BYTES_PER_S * 1e3,
+            "ms": k2_timed["1024"]["ms"], "device_ms": sum(k2_timed["1024"]["phase_ms"].values()) or None,
+            "plain_ms": k2b_plain, "bound_ms": pxb * 5 / H100_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
         },
@@ -1431,6 +1540,7 @@ def main() -> None:
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:320",
             "launches": launches_b["K3"],
             "max_abs_err": max(db_errs["K3"], db_errs_b["K3"], border_errs["K3"], border_errs["ids"]), "ms": k3b_ms,
+            "device_ms": sum(k3_phases.values()) or None,
             "plain_ms": k3b_plain, "bound_ms": pxb * 9 / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
         },
@@ -1438,30 +1548,34 @@ def main() -> None:
             "name": "mask_to_u8 (K6 finalize)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/finalize.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:92",
-            "launches": launches_b["K6 mask_to_u8"], "max_abs_err": max(k6m_err, k6_edge_errs["mask_to_u8"]),
-            "ms": k6m_ms, "plain_ms": k6m_plain, "bound_ms": k6_bytes / H100_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": k6m_lib,
+            "launches": launches_b["K6 mask_to_u8"], "max_abs_err": k6_seam_errs["mask_to_u8"],
+            "ms": k6["1024"]["mask_to_u8"]["ms"], "device_ms": k6["1024"]["mask_to_u8"]["device_ms"],
+            "plain_ms": k6["1024"]["mask_to_u8"]["plain_ms"], "bound_ms": k6["1024"]["mask_to_u8"]["bound_ms"],
+            "bound_by": "bytes", "library_ms": k6["1024"]["mask_to_u8"]["library_ms"],
         },
         {
             "name": "binarize (K6 binarize)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/finalize.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:107",
-            "launches": launches_b["K6 binarize"], "max_abs_err": max(k6b_err, k6_edge_errs["binarize"]),
-            "ms": k6b_ms, "plain_ms": k6b_plain, "bound_ms": k6_bytes / H100_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": k6b_lib,
+            "launches": launches_b["K6 binarize"], "max_abs_err": k6_seam_errs["binarize"],
+            "ms": k6["1024"]["binarize"]["ms"], "device_ms": k6["1024"]["binarize"]["device_ms"],
+            "plain_ms": k6["1024"]["binarize"]["plain_ms"], "bound_ms": k6["1024"]["binarize"]["bound_ms"],
+            "bound_by": "bytes", "library_ms": k6["1024"]["binarize"]["library_ms"],
         },
         {
             "name": "cc_row_sweep (K4 rows)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
-            "launches": launches_big["K4 row"], "max_abs_err": k4_err, "ms": k4r_ms, "plain_ms": k4r_plain,
+            "launches": launches_big["K4 row"], "max_abs_err": k4_err, "ms": k4r_ms, "device_ms": k4r_dev,
+            "plain_ms": k4r_plain,
             "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
         {
             "name": "cc_col_sweep (K4 columns)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
-            "launches": launches_big["K4 col"], "max_abs_err": max(k4_err, k4c_err), "ms": k4c_ms, "plain_ms": k4c_plain,
+            "launches": launches_big["K4 col"], "max_abs_err": max(k4_err, k4c_err), "ms": k4c_ms, "device_ms": k4c_dev,
+            "plain_ms": k4c_plain,
             "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
     ]
@@ -1473,7 +1587,8 @@ def main() -> None:
             "name": f"{name} (K5, float32 1536x1536)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/morph.cu",
             "replaces": f"comic_text_detector_tpu/ops/pallas_kernels.py:{line}",
-            "launches": launches_big[key], "max_abs_err": k5_err, "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "launches": launches_big[key], "max_abs_err": k5_err, "ms": v["ms"], "device_ms": v["device_ms"],
+            "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": "bytes", "library_ms": v.get("library_ms"),
         })
     print(json.dumps({"stream_pages_per_s_bf16": len(spages) / stream_s,
@@ -1506,7 +1621,7 @@ def main() -> None:
                       "k4_col_2048": k4c_2048,
                       "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds,
                                 "auto": cc_auto_ms},
-                      "k2": k2_timed,
+                      "k2": k2_timed, "k6": k6,
                       "k5_ms": {f"{n} {d}": v for (n, d), v in k5.items()},
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

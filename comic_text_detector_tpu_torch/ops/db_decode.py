@@ -71,11 +71,12 @@ def db_decode_batch(
     max_boundary: int = 8192,
     rank_ids: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, H, W) probability maps -> (boxes (B, C, 4, 2) f32, scores (B, C),
-    valid (B, C)), each page as :func:`db_decode_full_device` decodes it.
-    One K6 launch binarizes the stack and one ``cc_ids_windows_local`` or
-    ``connected_components`` call labels it; the boundary table and angle
-    scan run page by page."""
+    """(B, H, W) float32 probability maps -> (boxes (B, C, 4, 2) f32, scores
+    (B, C), valid (B, C)), each page as :func:`db_decode_full_device` decodes
+    it.  One K6 launch binarizes the stack, reading page-strided planes in
+    place (``lines[:, 0]`` of the DB head's output is not copied), and one
+    ``cc_ids_windows_local`` or ``connected_components`` call labels it; the
+    boundary table and angle scan run page by page on views of each plane."""
     h, w = shrink_maps.shape[-2:]
     if rank_ids is None:
         rank_ids = h * w <= IDS_MAX_ELEMS

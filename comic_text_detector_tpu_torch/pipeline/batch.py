@@ -125,7 +125,9 @@ class BatchTextDetector:
         rows = torch.stack([r for r, _ in nms])
         counts = torch.stack([c for _, c in nms])
         masks_full = mask_to_u8(mask[:, 0])
-        boxes, scores, valid = db_decode_batch(lines[:, 0].to(torch.float32), self.db_thresh)
+        # the shrink maps are a page-strided view of the DB head's (B, 2, S, S)
+        # output: K6 binarizes them in place, with no copy
+        boxes, scores, valid = db_decode_batch(lines[:, 0], self.db_thresh)
 
         mask_devs = None
         if self.refine_backend == "device" or self.mask_transfer == "packed":
