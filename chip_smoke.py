@@ -743,6 +743,117 @@ def check_k4_columns(dev) -> int:
     return 0
 
 
+ROW_CHUNKS = (16, 32, 48, 64, 96, 128)  # K4 row kernel's chunk widths, ``launch_rows<C>`` in csrc/scan.cu
+
+
+def row_lane_masks(n: int, w: int, rng):
+    """(N, 10, W) masks aimed at the lane borders of K4's row kernel (one
+    warp a row, lane i holding pixels [i*C, i*C + C), C the least of
+    ``ROW_CHUNKS`` with 32 * C >= W), one kind a row, each page starting at
+    another kind: runs ending at each border, runs starting at it, runs
+    crossing it by one pixel a side, single-pixel runs just before and
+    just after it, an all-one row, every other chunk set throughout, 45%
+    noise with both pixels at each border set, and with only the one
+    before it set, and a row set but for its two end pixels."""
+    import numpy as np
+
+    c = next(c for c in ROW_CHUNKS if 32 * c >= w)
+    borders = np.arange(c, w, c)
+    rows = []
+    for kind in range(10):
+        r = np.zeros(w, np.uint8)
+        if kind == 0:
+            for b in borders:
+                r[max(b - 5, 0):b] = 1
+        elif kind == 1:
+            for b in borders:
+                r[b:b + 5] = 1
+        elif kind == 2:
+            for b in borders:
+                r[b - 1:b + 1] = 1
+        elif kind == 3:
+            r[borders - 1] = 1
+        elif kind == 4:
+            r[borders] = 1
+        elif kind == 5:
+            r[:] = 1
+        elif kind == 6:
+            for k in range(0, -(-w // c), 2):
+                r[k * c:(k + 1) * c] = 1
+        elif kind in (7, 8):
+            r[:] = rng.random(w) < 0.45
+            r[borders - 1] = 1
+            r[borders] = kind == 7
+        else:
+            r[1:w - 1] = 1
+        rows.append(r)
+    m = np.stack(rows)
+    return np.stack([m[np.roll(np.arange(10), -p)] for p in range(n)])
+
+
+def check_k4_rows(dev) -> int:
+    """K4's row kernel against its plain version on masks aimed at its lane
+    borders (``row_lane_masks``) at widths 1, 31, 32, 33, 47, 49, 127, 129,
+    1535, 1536, 1537, 2047, 2049, 4095 and 4096, on stacks whose adjacent
+    pages' last and first rows are both set throughout, and on views at odd
+    element offsets (every row then unaligned, or aligned row by row at
+    odd widths), with labels over the whole int32 range (INT32_MIN and
+    INT32_MAX among them, under set and unset pixels); then 20 repeats on
+    45% noise at (4, 1536, 1536), each bit-identical.  Returns the max abs
+    error (0, or it raises)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import scan_kernels as K4
+
+    rng = np.random.default_rng(23)
+
+    def labels_for(shape):
+        lab = rng.integers(-(2**31), 2**31 - 1, shape, dtype=np.int64).astype(np.int32)
+        lab[rng.random(shape) < 0.01] = 2**31 - 1
+        lab[rng.random(shape) < 0.01] = -(2**31)
+        return torch.from_numpy(lab).to(dev)
+
+    def hold(name, m, lab):
+        got, ref = K4.cc_row_sweep(lab, m), K4.cc_row_sweep_plain(lab, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 cc_row_sweep differs from its plain version on {name} {tuple(m.shape)}: "
+                                 f"{int((got != ref).sum())} pixels")
+
+    widths = (1, 31, 32, 33, 47, 49, 127, 129, 1535, 1536, 1537, 2047, 2049, 4095, 4096)
+    cases = 0
+    for w in widths:
+        m = torch.from_numpy(row_lane_masks(3, w, rng)).to(dev)
+        hold(f"lane borders at W = {w}", m, labels_for(m.shape))
+        # pages whose last and first rows are set throughout
+        seam = (rng.random((4, 6, w)) < 0.5).astype(np.uint8)
+        seam[:, 0] = 1
+        seam[:, -1] = 1
+        seam_t = torch.from_numpy(seam).to(dev)
+        hold(f"page seams at W = {w}", seam_t, labels_for(seam.shape))
+        # views at odd element offsets of larger buffers: the labels 1 element
+        # (4 bytes) off 16-byte alignment, the mask 1 or 3 bytes off
+        for lo, mo in ((1, 1), (2, 3)):
+            lab_buf = labels_for((m.numel() + lo,))
+            m_buf = torch.zeros(m.numel() + mo, dtype=torch.uint8, device=dev)
+            m_buf[mo:] = m.reshape(-1)
+            hold(f"views at offsets {lo} / {mo} at W = {w}", m_buf[mo:].view(m.shape), lab_buf[lo:].view(m.shape))
+        cases += 4
+    phase(f"  K4 row kernel bit-equal on its lane borders, page seams and odd-offset views ({cases} cases) at widths "
+          + ", ".join(map(str, widths)))
+    m = torch.from_numpy((rng.random((4, 1536, 1536)) < 0.45).astype(np.uint8)).to(dev)
+    lab = labels_for(m.shape)
+    ref = K4.cc_row_sweep_plain(lab, m)
+    for i in range(20):
+        got = K4.cc_row_sweep(lab, m)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 cc_row_sweep repeat {i} on 45% noise differs: {int((got != ref).sum())} pixels")
+    phase("  K4 row kernel: 20 repeats on (4, 1536, 1536) 45% noise, each bit-identical")
+    return 0
+
+
 def check_k5(dev) -> int:
     """The three K5 functions against their plain versions, uint8 and
     float32.  Returns the max abs error (0, or it raises)."""
@@ -1316,6 +1427,7 @@ def main() -> None:
     }
     k4_err = check_k4(dev, k4_cases)
     k4c_err = check_k4_columns(dev)
+    k4r_err = check_k4_rows(dev)
     # 4-connected maps through "auto": K4 where its rows take the width, the
     # plain route where they are wider
     for shape, k4_expected in (((2, 64, 4096), True), ((2, 64, 5000), False)):
@@ -1454,7 +1566,8 @@ def main() -> None:
     cc_plain_ms = cuda_ms(lambda: CC.connected_components(bitmaps_big, 8, "xla"), 3)
     phase(f"  K4 on {tuple(bitmaps_big.shape)} (2 copies cycled), ms a launch on the card's clock (events over the "
           f"Python loop): row {fmt(k4r_dev)} ({k4r_ms:.4f}), plain {k4r_plain:.3f}; column {fmt(k4c_dev)} "
-          f"({k4c_ms:.4f}), plain {k4c_plain:.3f}; bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none; {smi}")
+          f"({k4c_ms:.4f}), plain {k4c_plain:.3f}; bound {k4_bytes / H100_BYTES_PER_S * 1e3:.4f} ms a sweep; library: none; "
+          f"events time the host's issue rate; {smi}")
     # the column kernel at input_size 2048: the batch's bitmaps scaled up by
     # nearest neighbour, 2 copies of 4 x 2048 x 2048 cycled (2 x 84 MB)
     s2 = 2048
@@ -1469,6 +1582,16 @@ def main() -> None:
                 "bound_ms": bitmaps_2048.numel() * (4 + 1 + 4) / H100_BYTES_PER_S * 1e3}
     phase(f"  K4 column on {tuple(bitmaps_2048.shape)} (the 1536 bitmaps scaled up): {k4c_2048['ms']:.4f} ms "
           f"(plain {k4c_2048['plain_ms']:.3f}), bound {k4c_2048['bound_ms']:.4f} ms; {smi}")
+    if not torch.equal(K4.cc_row_sweep(lab2, bitmaps_2048), K4.cc_row_sweep_plain(lab2, bitmaps_2048)):
+        raise AssertionError("K4 cc_row_sweep differs from its plain version on the 2048 bitmaps")
+    k4r_2048 = {"device_ms": device_ms(K4.launch_row_sweep, k4c_2048_args),
+                "ms": cuda_ms_cycle(K4.launch_row_sweep, k4c_2048_args, 100),
+                "plain_ms": cuda_ms(lambda: K4.cc_row_sweep_plain(lab2, bitmaps_2048), 5),
+                "bound_ms": k4c_2048["bound_ms"]}
+    phase(f"  K4 row on {tuple(bitmaps_2048.shape)} (2 copies cycled): {fmt(k4r_2048['device_ms'])} ms a launch on "
+          f"the card's clock ({k4r_2048['ms']:.4f} on events over the Python loop, the host's issue rate), plain "
+          f"{k4r_2048['plain_ms']:.3f}, bound {k4r_2048['bound_ms']:.4f} ms; library: none (no PyTorch call takes a "
+          f"segmented min-scan); {smi}")
     phase(f"  connected_components on the batch's bitmaps: K4 route {cc_k4_ms:.2f} ms ({k4_rounds} rounds), "
           f"K2 route {cc_k2_ms:.2f} ms, plain {cc_plain_ms:.2f} ms")
     # K2 on the 1536 batch's bitmaps and on the 2048 ones (2 copies each cycled,
@@ -1566,7 +1689,7 @@ def main() -> None:
             "name": "cc_row_sweep (K4 rows)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/scan.cu",
             "replaces": "comic_text_detector_tpu/ops/pallas_kernels.py:177",
-            "launches": launches_big["K4 row"], "max_abs_err": k4_err, "ms": k4r_ms, "device_ms": k4r_dev,
+            "launches": launches_big["K4 row"], "max_abs_err": max(k4_err, k4r_err), "ms": k4r_ms, "device_ms": k4r_dev,
             "plain_ms": k4r_plain,
             "bound_ms": k4_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
         },
@@ -1618,7 +1741,7 @@ def main() -> None:
                       "stream_device_busy_ms_per_page": busy_big / len(hpages), "stream_idle_share": idle_big,
                       "stream_top_kernels": top_big, "single_page": single_big, "representer": rep_summary,
                       "k4_ms": [k4r_ms, k4c_ms], "k4_plain_ms": [k4r_plain, k4c_plain],
-                      "k4_col_2048": k4c_2048,
+                      "k4_col_2048": k4c_2048, "k4_row_2048": k4r_2048, "k4_device_ms": [k4r_dev, k4c_dev],
                       "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds,
                                 "auto": cc_auto_ms},
                       "k2": k2_timed, "k6": k6,

@@ -13,15 +13,41 @@
 //
 // Design.  The TPU kernel scans row bands or column strips held in VMEM by
 // Hillis-Steele doubling (log W shifted copies).  Here:
-//   rows     one thread block per row.  The row (W <= 4096 int32, 16 KB, and
-//            its mask, 4 KB) is staged in shared memory with coalesced loads.
-//            Each thread owns 4 neighbouring pixels.  A pass scans (gate,
-//            value) pairs, gate = "this pixel and its predecessor are both
-//            set": first within the thread, then across the block (warp
-//            shuffles inside a warp, the warps' totals through shared
-//            memory), then each thread rescans its 4 pixels with the carry
-//            from the pixels before it.  The forward pass runs left to
-//            right, the backward pass right to left on the forward result.
+//   rows     one warp a row, a chunked segmented scan in registers, with
+//            no block barrier.  A block holds 4 rows (2 at C > 64).  Lane i
+//            owns the C contiguous pixels [i*C, i*C + C) of its row, C the
+//            smallest of 16, 32, 48, 64, 96, 128 with 32*C >= W (48 at
+//            W = 1536), so one warp takes every width up to 4096: a row of
+//            4096 takes C = 128 (168 registers a thread and 24 bytes spilled,
+//            43 KB of shared memory a block of 2 warps), so no row needs
+//            two warps or a loop of segments.  At C = 48 a thread takes 128
+//            registers: 4 blocks of 4 warps an SM.  The row is staged
+//            through a warp-private buffer in shared memory, padded so
+//            that a quarter warp's 16-byte accesses to its lanes' chunks
+//            hit distinct banks: coalesced asynchronous copies (cp.async),
+//            every one issued before any is waited for and none holding a
+//            register (16-byte words where the row's start allows, a
+//            choice made per row, which is warp-uniform since a warp owns
+//            the row; at W % 4 != 0 consecutive rows start at different
+//            alignments), __syncwarp, each lane reads its chunk; and back
+//            the same way, through registers, for the stores.  Each lane loading its own chunk
+//            with 16-byte accesses (the first form of this design) took
+//            0.056-0.058 ms at (4, 1536, 1536) on an H100: every load and
+//            store instruction touched 32 lines.  The mask is kept as
+//            bits.  A forward walk leaves each pixel's prefix minimum over
+//            its run inside the chunk and the chunk's summary: first pixel
+//            set, last pixel set, all set, the minima of the runs at its
+//            left and right ends.  Two warp-shuffle scans over (gate,
+//            value) pairs carry each run's minimum across the lane
+//            borders, rightward and leftward, side by side: a run crosses
+//            a border only where both pixels at it are set, and passes
+//            through a lane only if the lane is set throughout; no value
+//            is a closed gate, never a sentinel, since every int32 is a
+//            label.  A backward walk reads each run's minimum at its last
+//            pixel (the carries added to the runs at the chunk's ends) and
+//            writes it over the run; each pixel is stored once, unset
+//            pixels with their input label.  Rows never exchange carries,
+//            so neither do the pages of a stack.
 //   columns  a chunked segmented scan.  One block of 32 x 32 threads owns a
 //            strip of 32 neighbouring columns of one page over all H rows:
 //            threadIdx.x is the column, so a warp reads one row's 128
@@ -62,13 +88,27 @@
 // (mostly in L2), and reads the mask again in both walks of pass 2 where a
 // chunk has more than 64 rows.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kItems = 4;                      // pixels per thread in the row kernel
-constexpr int kMaxRow = 4096;                  // W limit of the row kernel: 1024 threads x 4
+#ifndef CTD_ROW_WARPS
+#define CTD_ROW_WARPS 4  // rows (warps) a block of the row kernel, at most 2 at C > 64
+#endif
+#ifndef CTD_ROW_MIN_BLOCKS
+#define CTD_ROW_MIN_BLOCKS 1  // blocks an SM the row kernel's registers must allow
+#endif
+#ifndef CTD_ROW_MIN_CHUNK
+#define CTD_ROW_MIN_CHUNK 16  // the row kernel's least chunk (scripts/k4_row_k5_variants.py raises it)
+#endif
+#ifndef CTD_ROW_VECTOR
+#define CTD_ROW_VECTOR 1  // 16-byte global accesses where aligned (the mask's 4-byte too); 0: 4- and 1-byte ones
+#endif
+
+constexpr int kRowWarps = CTD_ROW_WARPS;
+constexpr int kMaxRow = 4096;                  // W limit of the row kernel: 32 lanes x 128 pixels
 constexpr int kColLanes = 32;                  // columns of the column kernel's strip: one warp
 constexpr int kColChunks = 32;                 // row chunks of each column: 1024 threads a block
 constexpr int kTile = 8;                       // rows a column thread loads together
@@ -76,100 +116,216 @@ constexpr int kFirst = 1, kLast = 2, kAll = 4;  // chunk summary: first / last p
 constexpr int kIdentity = 0x7fffffff;          // identity value of the min: INT32_MAX
 constexpr unsigned kFull = 0xffffffffu;
 
-// One pass of the segmented min-scan over a row in shared memory, forward
-// (reverse == false) or backward.  Every thread must call it.
-__device__ void row_pass(int* sl, const uint8_t* sm, int w, bool reverse, int* warp_g, int* warp_v) {
-    int v[kItems];
-    bool g[kItems];
-    int first = threadIdx.x * kItems;  // position along the scan direction
-    for (int k = 0; k < kItems; ++k) {
-        int i = first + k;
-        if (i < w) {
-            int p = reverse ? w - 1 - i : i;
-            int q = reverse ? p + 1 : p - 1;  // predecessor along the scan
-            v[k] = sl[p];
-            g[k] = i > 0 && sm[p] && sm[q];
-        } else {
-            v[k] = kIdentity;
-            g[k] = false;
-        }
-    }
-    // this thread's aggregate: (a, b) -> (a.g & b.g, b.g ? min(a.v, b.v) : b.v)
-    bool tg = g[0];
-    int tv = v[0];
-    for (int k = 1; k < kItems; ++k) {
-        tv = g[k] ? min(tv, v[k]) : v[k];
-        tg = tg && g[k];
-    }
-    // inclusive scan of the aggregates within the warp
-    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int ig = tg, iv = tv;
-    for (int d = 1; d < 32; d <<= 1) {
-        int pg = __shfl_up_sync(kFull, ig, d);
-        int pv = __shfl_up_sync(kFull, iv, d);
-        if (lane >= d) {
-            iv = ig ? min(pv, iv) : iv;
-            ig = ig && pg;
-        }
-    }
-    // exclusive within the warp: the inclusive value of the lane before
-    int eg = __shfl_up_sync(kFull, ig, 1);
-    int ev = __shfl_up_sync(kFull, iv, 1);
-    if (lane == 0) {
-        eg = 1;
-        ev = kIdentity;
-    }
-    if (lane == 31) {
-        warp_g[warp] = ig;
-        warp_v[warp] = iv;
-    }
-    __syncthreads();
-    int nwarps = blockDim.x >> 5;
-    if (warp == 0) {
-        int wg = lane < nwarps ? warp_g[lane] : 1;
-        int wv = lane < nwarps ? warp_v[lane] : kIdentity;
-        for (int d = 1; d < 32; d <<= 1) {
-            int pg = __shfl_up_sync(kFull, wg, d);
-            int pv = __shfl_up_sync(kFull, wv, d);
-            if (lane >= d) {
-                wv = wg ? min(pv, wv) : wv;
-                wg = wg && pg;
-            }
-        }
-        if (lane < nwarps) {
-            warp_g[lane] = wg;
-            warp_v[lane] = wv;
-        }
-    }
-    __syncthreads();
-    // the carry into this thread: all warps before it, then the lanes before it
-    int carry = ev;
-    if (warp > 0) carry = eg ? min(warp_v[warp - 1], ev) : ev;
-    for (int k = 0; k < kItems; ++k) {
-        v[k] = g[k] ? min(carry, v[k]) : v[k];
-        carry = v[k];
-    }
-    for (int k = 0; k < kItems; ++k) {
-        int i = first + k;
-        if (i < w) sl[reverse ? w - 1 - i : i] = v[k];
-    }
-    __syncthreads();  // the next pass reads other threads' pixels
+// The nonzero bytes of a 4-byte word as 4 bits, byte 0 in bit 0.
+__device__ __forceinline__ unsigned nonzero_bits4(unsigned word) {
+    unsigned t = __vcmpne4(word, 0u) & 0x80808080u;
+    return ((t >> 7) | (t >> 14) | (t >> 21) | (t >> 28)) & 0xfu;
 }
 
-__global__ void __launch_bounds__(1024)
-row_sweep_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ mask, int* __restrict__ out, int w) {
-    __shared__ int sl[kMaxRow];
-    __shared__ uint8_t sm[kMaxRow];
-    __shared__ int warp_g[32], warp_v[32];
-    long long base = (long long)blockIdx.x * w;
-    for (int i = threadIdx.x; i < w; i += blockDim.x) {
-        sl[i] = labels[base + i];
-        sm[i] = mask[base + i] != 0;
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// The row kernel's layout for chunks of C pixels a lane: warps a block, and
+// the strides of a warp's staging buffers in shared memory, padded so that
+// a quarter warp's 16-byte accesses to its lanes' chunks hit distinct banks
+// (C + 4 words between label chunks; C + 16 or C + 32 bytes between mask
+// chunks, whichever is an odd number of 16-byte units).
+template <int C>
+struct RowLayout {
+    static constexpr int kWarps = C <= 64 || kRowWarps < 2 ? kRowWarps : 2;  // 45 KB of shared memory at most
+    static constexpr int kLabelStride = C + 4;
+    static constexpr int kMaskStride = C + ((C / 4) % 8 == 0 ? 16 : 32);
+};
+
+// Row sweep: warp r of the grid owns row r of the (rows, w) stack; lane i
+// the pixels [i*C, i*C + C) of it.
+template <int C>
+__global__ void __launch_bounds__(RowLayout<C>::kWarps * 32, CTD_ROW_MIN_BLOCKS)
+row_sweep_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ mask, int* __restrict__ out,
+                 long long rows, int w) {
+    using L = RowLayout<C>;
+    constexpr int kWords = (C + 31) / 32;
+    __shared__ __align__(16) int s_labels[L::kWarps][32 * L::kLabelStride];
+    __shared__ __align__(16) uint8_t s_mask[L::kWarps][32 * L::kMaskStride];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row = (long long)blockIdx.x * L::kWarps + warp;
+    if (row >= rows) return;  // the whole warp: no shuffle is left waiting
+    int* sl = s_labels[warp];
+    uint8_t* sm = s_mask[warp];
+    const int* lrow = labels + row * w;
+    const uint8_t* mrow = mask + row * w;
+    int* orow = out + row * w;
+    const bool vec = CTD_ROW_VECTOR != 0;
+    // where pixel e of the row sits in the staging buffers
+    auto at_label = [](int e) { return e / C * L::kLabelStride + e % C; };
+    auto at_mask = [](int e) { return e / C * L::kMaskStride + e % C; };
+
+    // stage the row: asynchronous coalesced copies to the lanes' chunks in
+    // shared memory, every one issued before any is waited for and none
+    // holding a register (16-byte words where the row's start allows, else
+    // 4-byte ones; a copy that runs past the row reads up to its end and
+    // fills the rest with zeros; a mask row off 4-byte alignment goes byte
+    // by byte through registers)
+    if (vec && aligned(lrow, 16)) {
+#pragma unroll
+        for (int j = 0; j < C / 4; ++j) {
+            const int e = 4 * (lane + 32 * j);
+            if (e < w) __pipeline_memcpy_async(sl + at_label(e), lrow + e, 16, e + 4 <= w ? 0 : 4 * (e + 4 - w));
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+            if (lane + 32 * k < w) __pipeline_memcpy_async(sl + at_label(lane + 32 * k), lrow + lane + 32 * k, 4);
     }
-    __syncthreads();
-    row_pass(sl, sm, w, false, warp_g, warp_v);
-    row_pass(sl, sm, w, true, warp_g, warp_v);
-    for (int i = threadIdx.x; i < w; i += blockDim.x) out[base + i] = sl[i];
+    if (vec && aligned(mrow, 16)) {
+#pragma unroll
+        for (int j = 0; j < C / 16; ++j) {
+            const int e = 16 * (lane + 32 * j);
+            if (e < w) __pipeline_memcpy_async(sm + at_mask(e), mrow + e, 16, e + 16 <= w ? 0 : e + 16 - w);
+        }
+    } else if (vec && aligned(mrow, 4)) {
+#pragma unroll
+        for (int j = 0; j < C / 4; ++j) {
+            const int e = 4 * (lane + 32 * j);
+            if (e < w) __pipeline_memcpy_async(sm + at_mask(e), mrow + e, 4, e + 4 <= w ? 0 : e + 4 - w);
+        }
+    } else {
+        uint8_t q[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) q[k] = lane + 32 * k < w ? __ldg(mrow + lane + 32 * k) : 0;
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+            if (lane + 32 * k < w) sm[at_mask(lane + 32 * k)] = q[k];
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+
+    // this lane's chunk: its labels, and its mask as bits (none past the row)
+    const int x0 = lane * C;
+    // n is tested on w - x0 itself: from n = max(0, min(C, w - x0)) and
+    // ``n == C``, nvcc 12.9's sm_90a build took the predicate of the
+    // VIMNMX.RELU that clamps n as the test, and partial chunks ran the full
+    // chunk's path (the checks on masks aimed at the lane borders caught it)
+    const int rest = w - x0;
+    const int n = rest >= C ? C : rest > 0 ? rest : 0;  // this lane's pixels
+    int v[C];
+    unsigned bits[kWords];
+#pragma unroll
+    for (int k = 0; k < C; k += 4) {
+        const int4 q = *reinterpret_cast<const int4*>(sl + lane * L::kLabelStride + k);
+        v[k] = q.x;
+        v[k + 1] = q.y;
+        v[k + 2] = q.z;
+        v[k + 3] = q.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) bits[i] = 0;
+#pragma unroll
+    for (int k = 0; k < C; k += 16) {
+        const uint4 q = *reinterpret_cast<const uint4*>(sm + lane * L::kMaskStride + k);
+        bits[k >> 5] |= (nonzero_bits4(q.x) | nonzero_bits4(q.y) << 4 | nonzero_bits4(q.z) << 8 |
+                         nonzero_bits4(q.w) << 12) << (k & 31);
+    }
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+        const int left = n - 32 * i;  // this word's pixels inside the row
+        bits[i] &= left >= 32 ? ~0u : left > 0 ? (1u << left) - 1 : 0u;
+    }
+
+    // forward walk: each set pixel takes the minimum of its run up to it
+    // inside the chunk; the leading run's length and minimum (top), the
+    // trailing run's start and minimum (bot)
+    int top = 0, bot = 0, top_len = 0, bot_start = 0;
+    bool lead = true;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+        const bool s = (bits[k >> 5] >> (k & 31)) & 1u;
+        if (k > 0 && s && ((bits[(k - 1) >> 5] >> ((k - 1) & 31)) & 1u)) v[k] = min(v[k], v[k - 1]);
+        if (s && lead) {
+            top = v[k];
+            top_len = k + 1;
+        }
+        if (!s && k < n) {
+            lead = false;
+            bot_start = k + 1;
+        }
+        if (k == n - 1) bot = v[k];
+    }
+    const bool first = top_len > 0, last = bot_start < n, all = n > 0 && top_len == n;
+
+    // the carries: a run crosses the border to the lane before where this
+    // lane's first pixel and that lane's last are set, and to the lane
+    // after where this lane's last pixel and that lane's first are set
+    const bool prev_last = __shfl_up_sync(kFull, (int)last, 1) && lane > 0;
+    const bool next_first = __shfl_down_sync(kFull, (int)first, 1) && lane < 31;
+    int rg = all && prev_last, rv = bot;   // rightward: the run leaving each lane's right end
+    int lg = all && next_first, lv = top;  // leftward: the run leaving its left end
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int pg = __shfl_up_sync(kFull, rg, d), pv = __shfl_up_sync(kFull, rv, d);
+        const int qg = __shfl_down_sync(kFull, lg, d), qv = __shfl_down_sync(kFull, lv, d);
+        if (lane >= d) {
+            if (rg) rv = min(rv, pv);
+            rg = rg && pg;
+        }
+        if (lane + d < 32) {
+            if (lg) lv = min(lv, qv);
+            lg = lg && qg;
+        }
+    }
+    const int from_left = __shfl_up_sync(kFull, rv, 1), from_right = __shfl_down_sync(kFull, lv, 1);
+    const bool take_left = prev_last && first, take_right = next_first && last;
+
+    // backward walk: a run's last pixel holds its minimum in the chunk; the
+    // runs at the chunk's ends take the carries; written over the run
+    bool after = false;  // whether the pixel after k is set
+    int r = 0;
+#pragma unroll
+    for (int k = C - 1; k >= 0; --k) {
+        const bool s = (bits[k >> 5] >> (k & 31)) & 1u;
+        if (s && !after) {
+            r = v[k];
+            if (take_right && k == n - 1) r = min(r, from_right);
+            if (take_left && k < top_len) r = min(r, from_left);
+        }
+        if (s) v[k] = r;
+        after = s;
+    }
+
+    // the chunk back to the staging buffer, then coalesced stores, each
+    // pixel once (unset pixels with their input label)
+#pragma unroll
+    for (int k = 0; k < C; k += 4)
+        *reinterpret_cast<int4*>(sl + lane * L::kLabelStride + k) = make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+    __syncwarp();
+    if (vec && aligned(orow, 16)) {
+#pragma unroll
+        for (int j = 0; j < C / 4; ++j) {
+            const int e = 4 * (lane + 32 * j);
+            if (e + 4 <= w) {
+                *reinterpret_cast<int4*>(orow + e) = *reinterpret_cast<const int4*>(sl + at_label(e));
+            } else {
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                    if (e + t < w) orow[e + t] = sl[at_label(e + t)];
+            }
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+            if (lane + 32 * k < w) orow[lane + 32 * k] = sl[at_label(lane + 32 * k)];
+    }
+}
+
+template <int C>
+int launch_rows(const int32_t* labels, const uint8_t* mask, int32_t* out, long long rows, int w, cudaStream_t stream) {
+    constexpr int kWarps = RowLayout<C>::kWarps;
+    const long long blocks = (rows + kWarps - 1) / kWarps;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    row_sweep_kernel<C><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(labels, mask, out, rows, w);
+    return (int)cudaGetLastError();
 }
 
 // Column sweep: one block per strip of kColLanes columns of one page, over
@@ -353,9 +509,14 @@ int ctd_cc_row_sweep(const int32_t* labels, const uint8_t* mask, int32_t* out, i
     long long rows = (long long)n * h;
     if (rows == 0 || w == 0) return (int)cudaGetLastError();
     if (w > kMaxRow) return (int)cudaErrorInvalidValue;
-    int threads = ((w + kItems - 1) / kItems + 31) / 32 * 32;
-    row_sweep_kernel<<<(unsigned int)rows, threads, 0, stream>>>(labels, mask, out, w);
-    return (int)cudaGetLastError();
+    // the least chunk C of 32 lanes that holds the row
+    const int c = max((w + 31) / 32, CTD_ROW_MIN_CHUNK);
+    if (c <= 16) return launch_rows<16>(labels, mask, out, rows, w, stream);
+    if (c <= 32) return launch_rows<32>(labels, mask, out, rows, w, stream);
+    if (c <= 48) return launch_rows<48>(labels, mask, out, rows, w, stream);
+    if (c <= 64) return launch_rows<64>(labels, mask, out, rows, w, stream);
+    if (c <= 96) return launch_rows<96>(labels, mask, out, rows, w, stream);
+    return launch_rows<128>(labels, mask, out, rows, w, stream);
 }
 
 // Column sweep of an (n, h, w) stack.  Returns cudaGetLastError().

@@ -18,8 +18,12 @@ over 1M elements (the DB decode at input sizes above 1024).
 Both are CUDA C++ (``csrc/scan.cu``), built by ``nvcc`` on first use and
 bound with ``ctypes``.  Each wrapper launches its kernel for a CUDA tensor,
 uses the plain PyTorch version beside it for a CPU tensor, and counts its
-launches in ``<wrapper>.launches``.  The row kernel holds a row in shared
-memory and takes W <= 4096.  The column kernel takes any H and W: a
+launches in ``<wrapper>.launches``.  The row kernel takes W <= 4096: one
+warp a row, each lane a chunk of C contiguous pixels in registers (C the
+least of 16, 32, 48, 64, 96, 128 with 32 * C >= W); each lane summarises
+its chunk, two warp-shuffle scans carry each run's minimum across the lane
+borders, and each lane resolves its runs and writes every pixel once.  The
+column kernel takes any H and W: a
 chunked segmented scan, one block per strip of 32 columns of a page, each
 column cut into 32 row chunks, one thread a chunk.  Each thread summarises
 its chunk (the runs touching its top and bottom), two scans over the
@@ -36,7 +40,7 @@ import torch
 
 from comic_text_detector_tpu_torch.ops import cuda_build
 
-MAX_ROW = 4096  # the row kernel's widest row: 1024 threads x 4 pixels
+MAX_ROW = 4096  # the row kernel's widest row: 32 lanes x 128 pixels
 _INT32_MAX = 2**31 - 1
 
 

@@ -7,14 +7,19 @@ The plain row and column sweeps are held against JAX's ``cc_row_sweep`` and
 zeros.  ``connected_components`` on every route is held against JAX's
 ``connected_components(..., "xla")`` and against ``scipy.ndimage.label`` up
 to renumbering.  Labels are integers with one right answer, so nothing is
-tolerated.  A NumPy model of the CUDA column kernel's decomposition (row
-chunks, their summaries, the carries across chunk borders) is held bit for
-bit against both at several chunk counts.
+tolerated.  NumPy models of the CUDA kernels' decompositions are held bit
+for bit against both: the column kernel's (row chunks, their summaries,
+the carries across chunk borders) at several chunk counts, and the row
+kernel's (one warp a row: lane chunks, per-lane summaries, the two
+warp-shuffle carry scans, the resolve) at several chunk widths and lane
+counts.
 
 On the CPU the wrappers run their plain PyTorch versions; the tests marked
 ``cuda`` hold the CUDA kernels against those plain versions and run only
 where a card is present.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -217,6 +222,180 @@ def test_chunked_column_model_matches_plain_and_jax(shape, kind, chunks):
     np.testing.assert_array_equal(got, S.cc_col_sweep_plain(torch.from_numpy(lab), torch.from_numpy(m)).numpy())
     for p in range(shape[0]):
         np.testing.assert_array_equal(got[p], np.asarray(jax_col_sweep(jnp.asarray(lab[p]), jnp.asarray(m[p]))))
+    if kind == "all-zero":
+        np.testing.assert_array_equal(got, lab)
+
+
+def _shfl_up(x: np.ndarray, d: int) -> np.ndarray:
+    """``__shfl_up_sync`` over the last axis (the lanes): lane i gets lane
+    i - d's value, lanes below d keep their own."""
+    y = x.copy()
+    y[..., d:] = x[..., :-d]
+    return y
+
+
+def _shfl_down(x: np.ndarray, d: int) -> np.ndarray:
+    y = x.copy()
+    y[..., :-d] = x[..., d:]
+    return y
+
+
+# the row kernel's chunk widths (``launch_rows<C>`` in ``csrc/scan.cu``)
+_ROW_CHUNKS = (16, 32, 48, 64, 96, 128)
+
+
+def _kernel_row_chunk(w: int) -> int:
+    return next(c for c in _ROW_CHUNKS if 32 * c >= w)
+
+
+def _warp_row_sweep_model(lab: np.ndarray, m: np.ndarray, lanes: int, c: int) -> np.ndarray:
+    """NumPy model of the row kernel of ``csrc/scan.cu`` on an (N, H, W)
+    stack: one warp of ``lanes`` lanes a row (the kernel has 32), lane i
+    holding the ``c`` pixels [i*c, i*c + c) in registers, all rows at once.
+
+    A forward walk leaves each set pixel the minimum of its run inside the
+    chunk up to it, and the chunk's summary: the leading run's length and
+    minimum (top), the trailing run's start and minimum (bot).  Two
+    Hillis-Steele scans over the lanes, written with the warp's shuffles,
+    carry (gate, value) pairs rightward and leftward: a run crosses a
+    border where both pixels at it are set and passes through a lane set
+    throughout.  A backward walk reads each run's minimum at its last
+    pixel, adds the carries to the runs at the chunk's ends, and writes it
+    over the run."""
+    n_pages, h, w = lab.shape
+    assert w <= lanes * c
+    rows = n_pages * h
+    v = np.zeros((rows, lanes * c), np.int32)
+    s = np.zeros((rows, lanes * c), bool)
+    v[:, :w], s[:, :w] = lab.reshape(rows, w), m.reshape(rows, w) != 0
+    v, s = v.reshape(rows, lanes, c), s.reshape(rows, lanes, c)
+    lane = np.arange(lanes)
+    n = np.clip(w - lane * c, 0, c)  # each lane's pixels
+    top, bot = np.zeros((rows, lanes), np.int32), np.zeros((rows, lanes), np.int32)
+    top_len, bot_start = np.zeros((rows, lanes), np.int64), np.zeros((rows, lanes), np.int64)
+    lead = np.ones((rows, lanes), bool)
+    for k in range(c):  # forward walk
+        if k > 0:
+            v[:, :, k] = np.where(s[:, :, k] & s[:, :, k - 1], np.minimum(v[:, :, k], v[:, :, k - 1]), v[:, :, k])
+        on = s[:, :, k] & lead
+        top, top_len = np.where(on, v[:, :, k], top), np.where(on, k + 1, top_len)
+        off = ~s[:, :, k] & (k < n)
+        lead, bot_start = lead & ~off, np.where(off, k + 1, bot_start)
+        bot = np.where(k == n - 1, v[:, :, k], bot)
+    first, last, full = top_len > 0, bot_start < n, (n > 0) & (top_len == n)
+    prev_last = _shfl_up(last, 1) & (lane > 0)
+    next_first = _shfl_down(first, 1) & (lane < lanes - 1)
+    rg, rv = full & prev_last, bot.copy()
+    lg, lv = full & next_first, top.copy()
+    d = 1
+    while d < lanes:  # the two carry scans
+        pg, pv, qg, qv = _shfl_up(rg, d), _shfl_up(rv, d), _shfl_down(lg, d), _shfl_down(lv, d)
+        up, down = lane >= d, lane + d < lanes
+        rv, rg = np.where(up & rg, np.minimum(rv, pv), rv), np.where(up, rg & pg, rg)
+        lv, lg = np.where(down & lg, np.minimum(lv, qv), lv), np.where(down, lg & qg, lg)
+        d *= 2
+    from_left, from_right = _shfl_up(rv, 1), _shfl_down(lv, 1)
+    take_left, take_right = prev_last & first, next_first & last
+    after, r = np.zeros((rows, lanes), bool), np.zeros((rows, lanes), np.int32)
+    for k in reversed(range(c)):  # backward walk: the resolve
+        sk = s[:, :, k]
+        end = sk & ~after
+        r = np.where(end, v[:, :, k], r)
+        r = np.where(end & take_right & (k == n - 1), np.minimum(r, from_right), r)
+        r = np.where(end & take_left & (k < top_len), np.minimum(r, from_left), r)
+        v[:, :, k] = np.where(sk, r, v[:, :, k])
+        after = sk
+    return v.reshape(rows, lanes * c)[:, :w].reshape(lab.shape)
+
+
+def _lane_border_masks(shape, c: int, seed: int) -> np.ndarray:
+    """(N, H, W) masks aimed at the lane borders of chunks of ``c`` pixels,
+    one kind a row, cycling over the rows of the stack: runs ending at each
+    border, runs starting at it, runs crossing it by one pixel a side,
+    single-pixel runs just before and just after it, all-one rows, every
+    other chunk set throughout, 45% noise with both pixels at each border
+    set, and with the pixel before each border set and the one after it
+    unset, and rows set but for their two end pixels.  The last row of each
+    page and the first of the next are both set throughout."""
+    n, h, w = shape
+    rng = np.random.default_rng(seed)
+    borders = np.arange(c, w, c)
+    m = np.zeros((n * h, w), np.uint8)
+    for i in range(n * h):
+        kind, r = i % 10, m[i]
+        if kind == 0:
+            for b in borders:
+                r[max(b - 5, 0) : b] = 1
+        elif kind == 1:
+            for b in borders:
+                r[b : b + 5] = 1
+        elif kind == 2:
+            for b in borders:
+                r[b - 1 : b + 1] = 1
+        elif kind == 3:
+            r[borders - 1] = 1
+        elif kind == 4:
+            r[borders] = 1
+        elif kind == 5:
+            r[:] = 1
+        elif kind == 6:
+            for k in range(0, -(-w // c), 2):
+                r[k * c : (k + 1) * c] = 1
+        elif kind in (7, 8):
+            r[:] = rng.random(w) < 0.45
+            r[borders - 1] = 1
+            r[borders] = kind == 7
+        else:
+            r[1 : w - 1] = 1
+    m = m.reshape(shape)
+    m[:, 0] = m[:, -1] = 1
+    return m
+
+
+@functools.cache
+def _jax_row_sweep_pages(shape, kind: str, c: int):
+    m = _row_masks(shape, kind, c)
+    lab = _random_labels(shape, seed=shape[2] + c)
+    return np.stack([np.asarray(jax_row_sweep(jnp.asarray(lab[p]), jnp.asarray(m[p]))) for p in range(shape[0])])
+
+
+def _row_masks(shape, kind: str, c: int) -> np.ndarray:
+    if kind == "lane borders":
+        return _lane_border_masks(shape, c, seed=c)
+    rng = np.random.default_rng(shape[1] * 100 + shape[2])
+    if kind == "noise 60%":
+        m = (rng.random(shape) < 0.6).astype(np.uint8)
+        m[:, 0] = m[:, -1] = 1  # pages whose last and first rows are set throughout
+        return m
+    return np.full(shape, kind == "all-one", np.uint8)
+
+
+_ROW_LAYOUTS = ["kernel", "32 lanes, exact", "4 lanes", "8 lanes, wide", "one pixel a lane", "one lane"]
+
+
+@pytest.mark.parametrize("layout", _ROW_LAYOUTS)
+@pytest.mark.parametrize("kind", ["noise 60%", "all-one", "all-zero", "lane borders"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 5, 33), (3, 4, 53), (1, 10, 129), (1, 10, 256)])
+def test_warp_row_model_matches_plain_and_jax(shape, kind, layout):
+    """The row kernel's decomposition (lane chunks, per-lane summaries, the
+    rightward and leftward shuffle scans, the resolve), modelled in NumPy at
+    several lane counts and chunk widths (the kernel's own among them), is
+    bit-equal to the plain row sweep and to JAX's ``cc_row_sweep`` page by
+    page, on masks aimed at the lane borders and the page seams."""
+    w = shape[2]
+    lanes, c = {
+        "kernel": (32, _kernel_row_chunk(w)),
+        "32 lanes, exact": (32, -(-w // 32)),
+        "4 lanes": (4, -(-w // 4)),
+        "8 lanes, wide": (8, -(-w // 8) + 3),
+        "one pixel a lane": (w, 1),
+        "one lane": (1, w),
+    }[layout]
+    m = _row_masks(shape, kind, c)
+    lab = _random_labels(shape, seed=w + c)
+    got = _warp_row_sweep_model(lab, m, lanes, c)
+    np.testing.assert_array_equal(got, S.cc_row_sweep_plain(torch.from_numpy(lab), torch.from_numpy(m)).numpy())
+    np.testing.assert_array_equal(got, _jax_row_sweep_pages(shape, kind, c))
     if kind == "all-zero":
         np.testing.assert_array_equal(got, lab)
 
