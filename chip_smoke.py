@@ -203,12 +203,15 @@ def cuda_ms_cycle(fn, args, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase_ms(fn, reps: int = 20, args=((),)) -> dict:
+def kernel_phase_ms(fn, reps: int = 20, args=((),), only=None) -> dict:
     """Device ms a call of ``fn`` spends in each CUDA kernel it launches, by
     kernel name (CUPTI times through torch.profiler, over ``reps`` calls),
     cycling through ``args`` (one tuple per call) as :func:`cuda_ms_cycle`
     does; the time of a launch is the mean over the launches the trace
-    holds.  Empty if three traces in a row hold none."""
+    holds.  With ``only``, the kernels whose names hold it, however few of
+    their launches the trace kept (CUPTI drops records, and then another
+    kernel's may be all a trace holds).  Empty if three traces in a row
+    hold none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -224,7 +227,7 @@ def kernel_phase_ms(fn, reps: int = 20, args=((),)) -> dict:
         # a kernel of the call appears about ``reps`` times (a multiple for
         # one launched more than once a call); records of other work that
         # reach the trace appear a few times, and are left out
-        ours = [e for e in events if e.count >= reps // 2]
+        ours = [e for e in events if (only in e.key if only else e.count >= reps // 2)]
         if len(ours) < len(events):
             phase("  profiler: left out " + ", ".join(f"{e.key[:50]} x{e.count}" for e in events if e not in ours))
         if ours:
@@ -258,11 +261,11 @@ def time_k2(bitmaps, copies: int, plain_ms: float, smi: str) -> dict:
     return {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms, "phase_ms": by_kernel}
 
 
-def device_ms(fn, args=((),), reps: int = 40):
+def device_ms(fn, args=((),), reps: int = 40, only=None):
     """Device ms a call of ``fn``: the CUPTI times of every kernel it
-    launches, summed (:func:`kernel_phase_ms`); None where the profiler
-    recorded none."""
-    return sum(kernel_phase_ms(fn, reps, args).values()) or None
+    launches (whose name holds ``only``, if given), summed
+    (:func:`kernel_phase_ms`); None where the profiler recorded none."""
+    return sum(kernel_phase_ms(fn, reps, args, only).values()) or None
 
 
 def fmt(ms) -> str:
@@ -854,27 +857,77 @@ def check_k4_rows(dev) -> int:
     return 0
 
 
+def same_values(got, ref) -> bool:
+    """Bit-equal in integer types; in float32 equal values and NaN at the
+    same places (the plain versions' ``torch.minimum`` may write NaN bits
+    of its own, the kernels return the input's)."""
+    import torch
+
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, ref)
+    return torch.equal(got.isnan(), ref.isnan()) and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
+
+
 def check_k5(dev) -> int:
     """The three K5 functions against their plain versions, uint8 and
-    float32.  Returns the max abs error (0, or it raises)."""
+    float32: at 1536x1536, 1x4097, 4097x1 and 1037x1531; at the seams of
+    the kernel's layout (strips of 4 pixels, warps of 128 columns, bands of
+    rows): every H and W of 1, 2 and 3, W of 127, 129 and 4097, float32
+    with NaN, +inf and -inf planted at strip, segment and band borders;
+    and on a view at an odd byte offset of an odd-width image (``x[1:]`` of
+    a flattened buffer: every uint8 row then starts off alignment, or row
+    by row at odd widths).  Returns the max abs error (0, or it raises)."""
     import numpy as np
     import torch
 
     from comic_text_detector_tpu_torch.ops import morph as K5
 
     rng = np.random.default_rng(6)
+    names = ("erode3x3", "dilate3x3", "erode3x3_ellipse")
+
+    def image(shape, dtype):
+        if dtype == "uint8":
+            return rng.integers(0, 256, shape, dtype=np.uint8)
+        x = (rng.standard_normal(shape) * 100).astype(np.float32)
+        h, w = shape
+        for special in (np.nan, np.inf, -np.inf):  # at strip, segment and band borders
+            for rows, cols in ((np.arange(7, h, 8), slice(None)), (np.arange(8, h, 8), slice(None)),
+                               (slice(None), np.arange(3, w, 4)), (slice(None), np.arange(4, w, 4)),
+                               (slice(None), np.arange(127, w, 128)), (slice(None), np.arange(128, w, 128))):
+                x[rows, cols] = np.where(rng.random(x[rows, cols].shape) < 0.05, special, x[rows, cols])
+        return x
+
+    def hold(label, x):
+        for name in names:
+            kernel = getattr(K5, name)
+            before = kernel.launches
+            got, ref = kernel(x), getattr(K5, name + "_plain")(x)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1 or not same_values(got, ref):
+                raise AssertionError(f"K5 {name} differs from its plain version on {label} {tuple(x.shape)} {x.dtype}: "
+                                     f"{int((got != ref).sum())} pixels, launches +{kernel.launches - before}")
+
     for shape in ((1536, 1536), (1, 4097), (4097, 1), (1037, 1531)):
         for dtype in ("uint8", "float32"):
             x_np = (rng.integers(0, 256, shape, dtype=np.uint8) if dtype == "uint8"
                     else (rng.standard_normal(shape) * 100).astype(np.float32))
-            x = torch.from_numpy(x_np).to(dev)
-            for name in ("erode3x3", "dilate3x3", "erode3x3_ellipse"):
-                got, ref = getattr(K5, name)(x), getattr(K5, name + "_plain")(x)
-                torch.cuda.synchronize()
-                if not torch.equal(got, ref):
-                    raise AssertionError(f"K5 {name} differs from its plain version on {shape} {dtype}: "
-                                         f"{int((got != ref).sum())} pixels")
+            hold("random", torch.from_numpy(x_np).to(dev))
         phase(f"  K5 erode, dilate, cross erode bit-equal at {shape}, uint8 and float32")
+    seams = [(h, w) for h in (1, 2, 3) for w in (1, 2, 3)] + [(37, 127), (37, 129), (5, 4097), (300, 129), (47, 1531)]
+    for shape in seams:
+        for dtype in ("uint8", "float32"):
+            hold("seams", torch.from_numpy(image(shape, dtype)).to(dev))
+    # views at odd offsets of odd-width images, read in place (``.contiguous()``
+    # keeps them): uint8 one byte off, float32 one element off
+    for shape in ((37, 129), (300, 1531), (3, 3)):
+        for dtype in ("uint8", "float32"):
+            x = torch.from_numpy(image(shape, dtype)).to(dev)
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            buf[1:] = x.reshape(-1)
+            hold("an odd-offset view", buf[1:].view(shape))
+    phase("  K5 erode, dilate, cross erode equal in uint8 and float32 (NaN compared as NaN) at the seams: H, W in "
+          "{1, 2, 3}, W 127, 129, 4097, 1531, NaN and infinities at strip, segment and band borders, views at odd "
+          "offsets of 37x129, 300x1531 and 3x3")
     return 0
 
 
@@ -1556,7 +1609,8 @@ def main() -> None:
     k4_args = [(lab0.clone(), bitmaps_big.clone(), k4_out) for _ in range(2)]  # 2 x 47 MB: more than the L2
     k4r_ms = cuda_ms_cycle(K4.launch_row_sweep, k4_args, 100)
     k4c_ms = cuda_ms_cycle(K4.launch_col_sweep, k4_args, 100)
-    k4r_dev, k4c_dev = device_ms(K4.launch_row_sweep, k4_args), device_ms(K4.launch_col_sweep, k4_args)
+    k4r_dev = device_ms(K4.launch_row_sweep, k4_args, only="row_sweep")
+    k4c_dev = device_ms(K4.launch_col_sweep, k4_args, only="col_sweep")
     k4r_plain = cuda_ms(lambda: K4.cc_row_sweep_plain(lab0, bitmaps_big), 5)
     k4c_plain = cuda_ms(lambda: K4.cc_col_sweep_plain(lab0, bitmaps_big), 5)
     k4_bytes = bitmaps_big.numel() * (4 + 1 + 4)  # labels and mask in, labels out
@@ -1584,7 +1638,7 @@ def main() -> None:
           f"(plain {k4c_2048['plain_ms']:.3f}), bound {k4c_2048['bound_ms']:.4f} ms; {smi}")
     if not torch.equal(K4.cc_row_sweep(lab2, bitmaps_2048), K4.cc_row_sweep_plain(lab2, bitmaps_2048)):
         raise AssertionError("K4 cc_row_sweep differs from its plain version on the 2048 bitmaps")
-    k4r_2048 = {"device_ms": device_ms(K4.launch_row_sweep, k4c_2048_args),
+    k4r_2048 = {"device_ms": device_ms(K4.launch_row_sweep, k4c_2048_args, only="row_sweep"),
                 "ms": cuda_ms_cycle(K4.launch_row_sweep, k4c_2048_args, 100),
                 "plain_ms": cuda_ms(lambda: K4.cc_row_sweep_plain(lab2, bitmaps_2048), 5),
                 "bound_ms": k4c_2048["bound_ms"]}
@@ -1611,31 +1665,56 @@ def main() -> None:
     # K6 at the 1536 batch's shapes, on its mask stack and its own DB maps
     k6["1536"] = time_k6(mask_big[:, 0].contiguous(), lines_big, bdet_big.db_thresh, smi)
 
-    # K5 at 1536 x 1536, uint8 and float32; the library call for dilate is one
-    # max_pool2d on a replicate-padded float32 input, for erode one on the
-    # negated padded input (the same minimum, negated); the cross has none
+    # K5 at 1536 x 1536 (8 copies cycled in both types: the uint8 ones fit in
+    # the L2, the float32 ones pass it) and at 4096 x 4096 (uint8 4 copies,
+    # 67 MB; float32 2 copies, 268 MB); beside each, out.copy_(x) of the same
+    # bytes on the card's clock, the practical floor at that size.  The
+    # library forms, timed whole on the card's clock: dilate is F.pad
+    # (replicate) then F.max_pool2d, erode the same between two negations;
+    # the cross has none
     k5 = {}
-    x8 = torch.from_numpy(np.random.default_rng(18).integers(0, 256, (big, big), dtype=np.uint8)).to(dev)
-    for dtype, x in (("uint8", x8), ("float32", x8.float())):
-        outs = torch.empty_like(x)
-        xs = [(x.clone(), outs) for _ in range(8)]  # 8 x 9.4 MB in float32: more than the L2
-        for op, name in ((0, "erode3x3"), (1, "dilate3x3"), (2, "erode3x3_ellipse")):
-            k5[(name, dtype)] = {
-                "ms": cuda_ms_cycle(lambda a, o, op=op: K5.launch_morph(a, o, op), xs, 200),
-                "device_ms": device_ms(lambda a, o, op=op: K5.launch_morph(a, o, op), xs),
-                "plain_ms": cuda_ms(lambda: getattr(K5, name + "_plain")(x), 20),
-                "bound_ms": x.numel() * x.element_size() * 2 / H100_BYTES_PER_S * 1e3,
+    k5_library = {}
+    for s5, copies8, copies32 in ((big, 8, 8), (4096, 4, 2)):
+        x8 = torch.from_numpy(np.random.default_rng(18).integers(0, 256, (s5, s5), dtype=np.uint8)).to(dev)
+        for dtype, x, copies in (("uint8", x8, copies8), ("float32", x8.float(), copies32)):
+            xs = [(x.clone(), torch.empty_like(x)) for _ in range(copies)]
+            floor = device_ms(lambda a, o: o.copy_(a), xs)
+            for op, name in ((0, "erode3x3"), (1, "dilate3x3"), (2, "erode3x3_ellipse")):
+                if not torch.equal(getattr(K5, name)(x), getattr(K5, name + "_plain")(x)):
+                    raise AssertionError(f"K5 {name} differs from its plain version at {s5}x{s5} {dtype}")
+                k5[(name, dtype, s5)] = {
+                    "ms": cuda_ms_cycle(lambda a, o, op=op: K5.launch_morph(a, o, op), xs, 200),
+                    "device_ms": device_ms(lambda a, o, op=op: K5.launch_morph(a, o, op), xs, only="morph3x3"),
+                    "plain_ms": cuda_ms(lambda: getattr(K5, name + "_plain")(x), 20),
+                    "bound_ms": x.numel() * x.element_size() * 2 / H100_BYTES_PER_S * 1e3,
+                    "copy_floor_device_ms": floor, "copies": copies,
+                }
+            flip = (lambda t: 255 - t) if dtype == "uint8" else (lambda t: -t)  # min as a max, order reversed
+            lib_forms = {
+                "dilate3x3": lambda a, *_: F.max_pool2d(F.pad(a[None, None], (1, 1, 1, 1), mode="replicate"), 3, 1),
+                "erode3x3": lambda a, *_, flip=flip: flip(
+                    F.max_pool2d(F.pad(flip(a[None, None]), (1, 1, 1, 1), mode="replicate"), 3, 1)),
             }
-    xf = x8.float()
-    padded = F.pad(xf[None, None], (1, 1, 1, 1), mode="replicate")
-    neg_padded = -padded
-    k5[("dilate3x3", "float32")]["library_ms"] = cuda_ms(lambda: F.max_pool2d(padded, 3, 1), 200)
-    k5[("erode3x3", "float32")]["library_ms"] = cuda_ms(lambda: F.max_pool2d(neg_padded, 3, 1), 200)
-    if not torch.equal(F.max_pool2d(padded, 3, 1)[0, 0], K5.dilate3x3(xf)):
-        raise AssertionError("max_pool2d on the replicate-padded input is not dilate3x3")
-    phase("  K5 at 1536x1536, ms a launch on the card's clock (events over the Python loop): " + ", ".join(
-        f"{n} {d} {fmt(v['device_ms'])} ({v['ms']:.4f}; plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}"
-        + (f", library {v['library_ms']:.4f})" if "library_ms" in v else ")") for (n, d), v in k5.items()))
+            for name, form in lib_forms.items():
+                try:
+                    same = same_values(form(x)[0, 0], getattr(K5, name)(x))
+                except RuntimeError as e:  # an input type the library call refuses
+                    k5_library[(name, dtype, s5)] = f"none: {str(e).splitlines()[0][:120]}"
+                    continue
+                if not same:
+                    raise AssertionError(f"the library form of {name} differs from K5 at {s5}x{s5} {dtype}")
+                by_kernel = kernel_phase_ms(form, 40, xs)
+                k5[(name, dtype, s5)]["library_ms"] = cuda_ms_cycle(form, xs, 200)
+                k5[(name, dtype, s5)]["library_device_ms"] = sum(by_kernel.values()) or None
+                k5[(name, dtype, s5)]["library_kernels"] = len(by_kernel)
+                k5_library[(name, dtype, s5)] = (f"{fmt(sum(by_kernel.values()) or None)} ms on the card's clock in "
+                                                 f"{len(by_kernel)} kernels")
+        phase(f"  K5 at {s5}x{s5}, ms a launch on the card's clock (events over the Python loop, the host's issue rate): "
+              + ", ".join(f"{n} {d} {fmt(v['device_ms'])} ({v['ms']:.4f}; plain {v['plain_ms']:.3f}, bound "
+                          f"{v['bound_ms']:.5f}, out.copy_(x) {fmt(v['copy_floor_device_ms'])}, {v['copies']} copies)"
+                          for (n, d, sz), v in k5.items() if sz == s5) + f"; {smi}")
+        phase(f"  K5's library forms at {s5}x{s5}: " + ", ".join(
+            f"{n} {d}: {v}" for (n, d, sz), v in k5_library.items() if sz == s5) + "; erode3x3_ellipse: none")
 
     kernels = [
         {
@@ -1705,7 +1784,7 @@ def main() -> None:
     # K5 has no caller on any path: its launches on the path are 0
     for name, line, key in (("erode3x3", 37, "K5 erode"), ("dilate3x3", 37, "K5 dilate"),
                             ("erode3x3_ellipse", 71, "K5 cross")):
-        v = k5[(name, "float32")]
+        v = k5[(name, "float32", big)]
         kernels.append({
             "name": f"{name} (K5, float32 1536x1536)", "route": "cuda",
             "source": "comic_text_detector_tpu_torch/csrc/morph.cu",
@@ -1713,6 +1792,7 @@ def main() -> None:
             "launches": launches_big[key], "max_abs_err": k5_err, "ms": v["ms"], "device_ms": v["device_ms"],
             "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": "bytes", "library_ms": v.get("library_ms"),
+            "library_device_ms": v.get("library_device_ms"),
         })
     print(json.dumps({"stream_pages_per_s_bf16": len(spages) / stream_s,
                       "stream_ms_per_page_bf16": stream_s * 1e3 / len(spages),
@@ -1745,7 +1825,8 @@ def main() -> None:
                       "cc_ms": {"k4": cc_k4_ms, "k2": cc_k2_ms, "plain": cc_plain_ms, "k4_rounds": k4_rounds,
                                 "auto": cc_auto_ms},
                       "k2": k2_timed, "k6": k6,
-                      "k5_ms": {f"{n} {d}": v for (n, d), v in k5.items()},
+                      "k5_ms": {f"{n} {d} {sz}": v for (n, d, sz), v in k5.items()},
+                      "k5_library": {f"{n} {d} {sz}": v for (n, d, sz), v in k5_library.items()},
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,8 +97,10 @@ namespace {
 #ifndef CTD_ROW_WARPS
 #define CTD_ROW_WARPS 4  // rows (warps) a block of the row kernel, at most 2 at C > 64
 #endif
-#ifndef CTD_ROW_MIN_BLOCKS
-#define CTD_ROW_MIN_BLOCKS 1  // blocks an SM the row kernel's registers must allow
+#ifdef CTD_ROW_MIN_BLOCKS  // blocks an SM the row kernel's registers must allow (a variant)
+#define CTD_ROW_BOUNDS(threads) __launch_bounds__(threads, CTD_ROW_MIN_BLOCKS)
+#else
+#define CTD_ROW_BOUNDS(threads) __launch_bounds__(threads)
 #endif
 #ifndef CTD_ROW_MIN_CHUNK
 #define CTD_ROW_MIN_CHUNK 16  // the row kernel's least chunk (scripts/k4_row_k5_variants.py raises it)
@@ -141,7 +143,7 @@ struct RowLayout {
 // Row sweep: warp r of the grid owns row r of the (rows, w) stack; lane i
 // the pixels [i*C, i*C + C) of it.
 template <int C>
-__global__ void __launch_bounds__(RowLayout<C>::kWarps * 32, CTD_ROW_MIN_BLOCKS)
+__global__ void CTD_ROW_BOUNDS(RowLayout<C>::kWarps * 32)
 row_sweep_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ mask, int* __restrict__ out,
                  long long rows, int w) {
     using L = RowLayout<C>;

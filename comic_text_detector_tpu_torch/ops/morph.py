@@ -16,9 +16,13 @@ they are an API of their own.  The device refine's stencils
 (``ops/refine.py``) use a constant border and stay apart.
 
 All three are CUDA C++ (``csrc/morph.cu``), one launch per call, built by
-``nvcc`` on first use and bound with ``ctypes``.  Each wrapper launches its
-kernel for a CUDA tensor, uses the plain PyTorch version beside it for a CPU
-tensor, and counts its launches in ``<wrapper>.launches``.
+``nvcc`` on first use and bound with ``ctypes``: a register sliding window,
+each thread a strip of 4 output pixels walking a band of 8 rows, the
+neighbouring pixels from the adjacent lanes by warp shuffles, the border a
+clamp of row and column.  It reads any contiguous (H, W) tensor in place,
+one at an odd offset too.  Each wrapper launches its kernel for a CUDA
+tensor, uses the plain PyTorch version beside it for a CPU tensor, and
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations

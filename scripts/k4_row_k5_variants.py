@@ -18,7 +18,8 @@ source kept below:
   staging) and ``replaced`` (one block a row in shared memory, two
   block-wide scans);
 * K5 (strips of 4 pixels, a register window walking a band of rows):
-  ``rows8`` and ``rows32`` (rows a band, 16 committed), ``warps8`` (warps
+  ``rows4`` and ``rows16`` (rows a band, 8 committed; 16 was the first
+  committed and 32 the slowest of 8, 16 and 32), ``warps8`` (warps
   a block, 4 committed), ``scalar`` (byte or float loads and stores in
   place of 4- and 16-byte words), and ``replaced`` (32 x 32 output tiles
   staged with a halo in shared memory).
@@ -387,7 +388,124 @@ K4_VARIANTS = {
     "direct": (_DIRECT_ROWS, []),
     "replaced": (_REPLACED_ROWS, []),
 }
-K5_VARIANTS = {}
+# K5 before its redesign: a block of 32 x 8 threads writes a 32 x 32 output
+# tile from a 34 x 34 input tile staged in shared memory.
+_REPLACED_MORPH = r"""
+// 3x3 grey morphology kernels for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas TPU kernel K5 of comic_text_detector_tpu/ops/pallas_kernels.py,
+// which is two kernels behind three functions:
+//
+//   ctd_morph3x3_{u8,f32} op 0 <- _morph_kernel via erode3x3: the minimum over
+//                                 the full 3x3 square;
+//                         op 1 <- _morph_kernel via dilate3x3: the maximum
+//                                 over the full 3x3 square;
+//                         op 2 <- _ellipse_kernel via erode3x3_ellipse: the
+//                                 minimum over the centre and its 4-neighbour
+//                                 cross (cv2's 3x3 MORPH_ELLIPSE).
+//   The border replicates the edge pixels (cv2's default border for
+//   erode/dilate, scipy.ndimage mode="nearest").  Inputs are (H, W) uint8
+//   or float32; a NaN wins every minimum and maximum, as torch.minimum and
+//   jnp.minimum have it.
+//
+// Design.  A stencil with a 1-pixel halo.  A block of 32 x 8 threads writes
+// a 32 x 32 tile of the output: it loads the 34 x 34 input tile into shared
+// memory once, with coordinates clamped to the image (that clamping is the
+// replicate border), then each thread takes the 9 (or 5) taps of 4 pixels.
+// Arbitrary H and W; the ragged edge tiles mask their stores.  The bound is
+// bytes: each input byte read once and each output byte written once, 2
+// bytes a pixel in uint8 and 8 in float32 (1.4 us and 5.6 us at 1536x1536
+// and 3.35 TB/s); the taps are a few integer or float compares a pixel.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kRowsPerThread = 4;  // block is kTile x (kTile / kRowsPerThread) threads
+
+__device__ __forceinline__ uint8_t lo(uint8_t a, uint8_t b) { return a < b ? a : b; }
+__device__ __forceinline__ uint8_t hi(uint8_t a, uint8_t b) { return a > b ? a : b; }
+__device__ __forceinline__ float lo(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float hi(float a, float b) { return (a > b || a != a) ? a : b; }
+
+template <typename T, int Op>
+__global__ void morph3x3_kernel(const T* __restrict__ x, T* __restrict__ out, int h, int w) {
+    __shared__ T tile[kTile + 2][kTile + 2];
+    int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+    int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    int nthreads = blockDim.x * blockDim.y;
+    for (int k = tid; k < (kTile + 2) * (kTile + 2); k += nthreads) {
+        int ty = k / (kTile + 2), tx = k - ty * (kTile + 2);
+        int gy = min(max(y0 + ty - 1, 0), h - 1);
+        int gx = min(max(x0 + tx - 1, 0), w - 1);
+        tile[ty][tx] = x[(long long)gy * w + gx];
+    }
+    __syncthreads();
+    int cx = threadIdx.x + 1;
+    int gx = x0 + threadIdx.x;
+    for (int r = 0; r < kRowsPerThread; ++r) {
+        int cy = threadIdx.y * kRowsPerThread + r + 1;
+        int gy = y0 + cy - 1;
+        if (gx >= w || gy >= h) continue;
+        T c = tile[cy][cx];
+        T acc;
+        if (Op == 2) {
+            acc = lo(lo(lo(lo(c, tile[cy - 1][cx]), tile[cy + 1][cx]), tile[cy][cx - 1]), tile[cy][cx + 1]);
+        } else {
+            acc = c;
+            for (int dy = -1; dy <= 1; ++dy)
+                for (int dx = -1; dx <= 1; ++dx) {
+                    if (dy == 0 && dx == 0) continue;
+                    T t = tile[cy + dy][cx + dx];
+                    acc = Op == 0 ? lo(acc, t) : hi(acc, t);
+                }
+        }
+        out[(long long)gy * w + gx] = acc;
+    }
+}
+
+template <typename T>
+int launch(const T* x, T* out, int h, int w, int op, cudaStream_t stream) {
+    if (h <= 0 || w <= 0) return (int)cudaGetLastError();
+    dim3 block(kTile, kTile / kRowsPerThread);
+    dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
+    switch (op) {
+        case 0: morph3x3_kernel<T, 0><<<grid, block, 0, stream>>>(x, out, h, w); break;
+        case 1: morph3x3_kernel<T, 1><<<grid, block, 0, stream>>>(x, out, h, w); break;
+        case 2: morph3x3_kernel<T, 2><<<grid, block, 0, stream>>>(x, out, h, w); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// op: 0 erode (3x3 min), 1 dilate (3x3 max), 2 cross erode.  Returns cudaGetLastError().
+int ctd_morph3x3_u8(const uint8_t* x, uint8_t* out, int h, int w, int op, cudaStream_t stream) {
+    return launch(x, out, h, w, op, stream);
+}
+
+int ctd_morph3x3_f32(const float* x, float* out, int h, int w, int op, cudaStream_t stream) {
+    return launch(x, out, h, w, op, stream);
+}
+
+const char* ctd_morph_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+}  // extern "C"
+"""
+
+K5_VARIANTS = {
+    "committed": (None, []),
+    "rows4": (None, ["-DCTD_MORPH_ROWS=4"]),
+    "rows16": (None, ["-DCTD_MORPH_ROWS=16"]),
+    "warps8": (None, ["-DCTD_MORPH_WARPS=8"]),
+    "scalar": (None, ["-DCTD_MORPH_VECTOR=0"]),
+    "replaced": (_REPLACED_MORPH, []),
+}
 
 
 def build(kernel: str, name: str, source, flags) -> subprocess.Popen:
@@ -525,7 +643,7 @@ def main() -> None:
                 for name in order:
                     lib = libs["k4"][name]
                     r = row.setdefault(name, {"device_ms": [], "event_ms": []})
-                    r["device_ms"].append(device_ms(lambda a, b, c, lib=lib: k4_launch(lib, a, b, c), args))
+                    r["device_ms"].append(device_ms(lambda a, b, c, lib=lib: k4_launch(lib, a, b, c), args, only="row_sweep"))
                     r["event_ms"].append(event_ms(lambda a, b, c, lib=lib: k4_launch(lib, a, b, c), args))
                 results["k4_rows"][case] = row
                 bound = m.numel() * 9 / 3.35e12 * 1e3
@@ -538,8 +656,71 @@ def main() -> None:
     print(json.dumps(results), flush=True)
 
 
+def same_values(got, ref) -> bool:
+    """Bit-equal in uint8; in float32 equal values and NaN at the same
+    places (the plain version's ``torch.minimum`` writes NaN bits of its
+    own)."""
+    import torch
+
+    if got.dtype == torch.uint8:
+        return torch.equal(got, ref)
+    return torch.equal(got.isnan(), ref.isnan()) and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
+
+
 def k5_variants(libs, k5_launch, event_ms, device_ms, fmt, K5, rng, dev, smi) -> dict:
-    return {}
+    import numpy as np
+    import torch
+
+    names = ("erode3x3", "dilate3x3", "erode3x3_ellipse")
+    checked = 0
+    for shape in ((1, 1), (2, 3), (3, 2), (3, 127), (5, 129), (37, 53), (1, 4097), (4097, 1), (1037, 1531),
+                  (1536, 1536)):
+        for dtype in ("uint8", "float32"):
+            if dtype == "uint8":
+                x_np = rng.integers(0, 256, shape, dtype=np.uint8)
+            else:
+                x_np = (rng.standard_normal(shape) * 100).astype(np.float32)
+                for special in (np.nan, np.inf, -np.inf):
+                    x_np[rng.random(shape) < 0.01] = special
+            x = torch.from_numpy(x_np).to(dev)
+            # contiguous, and a contiguous view one element off the buffer's start
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            buf[1:] = x.reshape(-1)
+            for xin in (x, buf[1:].view(shape)):
+                for op, name in enumerate(names):
+                    ref = getattr(K5, name + "_plain")(xin)
+                    for vname, lib in libs.items():
+                        out = torch.empty_like(xin)
+                        k5_launch(lib, xin, out, op)
+                        torch.cuda.synchronize()
+                        if not same_values(out, ref):
+                            raise AssertionError(f"K5 {vname} {name} differs from the plain version at {shape} {dtype}")
+                    checked += 1
+    print(f"K5: every variant equal to the plain version ({checked} cases; NaN compared as NaN)", flush=True)
+
+    order = list(libs) + list(libs)[::-1]
+    res = {}
+    x8 = {s: torch.from_numpy(rng.integers(0, 256, (s, s), dtype=np.uint8)).to(dev) for s in (1536, 4096)}
+    for s, dtype, copies in ((1536, "uint8", 8), (1536, "float32", 8), (4096, "uint8", 4), (4096, "float32", 2)):
+        x = x8[s] if dtype == "uint8" else x8[s].float()
+        args = [(x.clone(), torch.empty_like(x)) for _ in range(copies)]
+        bound = x.numel() * x.element_size() * 2 / 3.35e12 * 1e3
+        floor = device_ms(lambda a, o: o.copy_(a), args)
+        for op, name in enumerate(names):
+            row = {}
+            for vname in order:
+                lib = libs[vname]
+                r = row.setdefault(vname, {"device_ms": [], "event_ms": []})
+                r["device_ms"].append(device_ms(lambda a, o, lib=lib, op=op: k5_launch(lib, a, o, op), args,
+                                                  only="morph3x3"))
+                r["event_ms"].append(event_ms(lambda a, o, lib=lib, op=op: k5_launch(lib, a, o, op), args))
+            case = f"{name} {s}x{s} {dtype}"
+            res[case] = {"variants": row, "copy_floor_device_ms": floor, "bound_ms": bound, "copies": copies}
+            print(f"K5 {case} ({copies} copies cycled), ms a launch on the card's clock (both turns; events, the "
+                  f"host's issue rate): " + ", ".join(
+                      f"{k} {' / '.join(map(fmt, v['device_ms']))} ({min(v['event_ms']):.4f})" for k, v in row.items())
+                  + f"; out.copy_(x) {fmt(floor)}; bound {bound:.5f} ms; {smi}", flush=True)
+    return res
 
 
 if __name__ == "__main__":
