@@ -36,7 +36,10 @@
 // The bound is bytes: each input byte read once and each output byte
 // written once, 2 bytes a pixel in uint8 and 8 in float32 (1.4 us and
 // 5.6 us at 1536x1536 and 3.35 TB/s); the band reads its two halo rows
-// again, 2 / kRows more, mostly from the L1 and L2.
+// again, 2 / kRows more, mostly from the L1 and L2.  Bands of 8 rows: on an
+// NVIDIA H100 80GB HBM3 at 700 W, 16 and 32 rows ran slower (more registers,
+// fewer warps an SM), 4 rows 2-6% faster in float32 and up to 8% slower in
+// uint8 at 4096x4096 (scripts/k4_row_k5_variants.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

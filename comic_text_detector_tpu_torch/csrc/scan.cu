@@ -30,11 +30,14 @@
 //            choice made per row, which is warp-uniform since a warp owns
 //            the row; at W % 4 != 0 consecutive rows start at different
 //            alignments), __syncwarp, each lane reads its chunk; and back
-//            the same way, through registers, for the stores.  Each lane loading its own chunk
-//            with 16-byte accesses (the first form of this design) took
-//            0.056-0.058 ms at (4, 1536, 1536) on an H100: every load and
-//            store instruction touched 32 lines.  The mask is kept as
-//            bits.  A forward walk leaves each pixel's prefix minimum over
+//            the same way, through registers, for the stores.  On an
+//            NVIDIA H100 80GB HBM3 at 700 W, at (4, 1536, 1536): each lane
+//            loading and storing its own chunk with 16-byte accesses (the
+//            first form of this design) took 0.056-0.058 ms, every load
+//            and store instruction touching 32 lines; staged through
+//            registers, 0.047-0.049 (167 registers a thread); with cp.async,
+//            0.044-0.046 (scripts/k4_row_k5_variants.py).  The mask is
+//            kept as bits.  A forward walk leaves each pixel's prefix minimum over
 //            its run inside the chunk and the chunk's summary: first pixel
 //            set, last pixel set, all set, the minima of the runs at its
 //            left and right ends.  Two warp-shuffle scans over (gate,
@@ -97,11 +100,6 @@ namespace {
 #ifndef CTD_ROW_WARPS
 #define CTD_ROW_WARPS 4  // rows (warps) a block of the row kernel, at most 2 at C > 64
 #endif
-#ifdef CTD_ROW_MIN_BLOCKS  // blocks an SM the row kernel's registers must allow (a variant)
-#define CTD_ROW_BOUNDS(threads) __launch_bounds__(threads, CTD_ROW_MIN_BLOCKS)
-#else
-#define CTD_ROW_BOUNDS(threads) __launch_bounds__(threads)
-#endif
 #ifndef CTD_ROW_MIN_CHUNK
 #define CTD_ROW_MIN_CHUNK 16  // the row kernel's least chunk (scripts/k4_row_k5_variants.py raises it)
 #endif
@@ -143,7 +141,7 @@ struct RowLayout {
 // Row sweep: warp r of the grid owns row r of the (rows, w) stack; lane i
 // the pixels [i*C, i*C + C) of it.
 template <int C>
-__global__ void CTD_ROW_BOUNDS(RowLayout<C>::kWarps * 32)
+__global__ void __launch_bounds__(RowLayout<C>::kWarps * 32)
 row_sweep_kernel(const int* __restrict__ labels, const uint8_t* __restrict__ mask, int* __restrict__ out,
                  long long rows, int w) {
     using L = RowLayout<C>;

@@ -10,8 +10,8 @@ source kept below:
 
 * K4 rows (one warp a row, staged through a warp-private buffer in shared
   memory with coalesced accesses, lane chunks in registers, two shuffle
-  scans): ``blocks6`` (registers capped so that 6 blocks of 4 warps fit
-  an SM at C <= 64, 4 committed at C = 48), ``chunk64`` (the chunk template raised to at least 64 pixels a lane: at
+  scans): ``warps2`` (rows a block, 4 committed up to 64 pixels a lane),
+  ``chunk64`` (the chunk template raised to at least 64 pixels a lane: at
   W = 1536, 24 lanes of 64 in place of 32 of 48), ``scalar`` (4-byte label
   and 1-byte mask accesses in place of 16-byte ones), ``direct`` (this
   design's first form: each lane loads and stores its own chunk, no
@@ -382,7 +382,7 @@ int ctd_cc_row_sweep(const int32_t* labels, const uint8_t* mask, int32_t* out, i
 # (source, or None for the committed file; extra nvcc flags)
 K4_VARIANTS = {
     "committed": (None, []),
-    "blocks6": (None, ["-DCTD_ROW_MIN_BLOCKS=6"]),
+    "warps2": (None, ["-DCTD_ROW_WARPS=2"]),
     "chunk64": (None, ["-DCTD_ROW_MIN_CHUNK=64"]),
     "scalar": (None, ["-DCTD_ROW_VECTOR=0"]),
     "direct": (_DIRECT_ROWS, []),
@@ -656,20 +656,11 @@ def main() -> None:
     print(json.dumps(results), flush=True)
 
 
-def same_values(got, ref) -> bool:
-    """Bit-equal in uint8; in float32 equal values and NaN at the same
-    places (the plain version's ``torch.minimum`` writes NaN bits of its
-    own)."""
-    import torch
-
-    if got.dtype == torch.uint8:
-        return torch.equal(got, ref)
-    return torch.equal(got.isnan(), ref.isnan()) and torch.equal(got.nan_to_num(0.0), ref.nan_to_num(0.0))
-
-
 def k5_variants(libs, k5_launch, event_ms, device_ms, fmt, K5, rng, dev, smi) -> dict:
     import numpy as np
     import torch
+
+    from chip_smoke import same_values
 
     names = ("erode3x3", "dilate3x3", "erode3x3_ellipse")
     checked = 0
