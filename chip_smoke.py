@@ -93,11 +93,30 @@ before it starts so a stall shows where it stopped:
    computing the same function; K4's column
    kernel also at (4, 2048, 2048), the batch's bitmaps scaled up; K2 from
    device memory on the batch's bitmaps and at (4, 2048, 2048), with its
-   time by kernel, and ``connected_components`` through ``"auto"`` on both.
+   time by kernel, and ``connected_components`` through ``"auto"`` on both;
+13. the seg trainer on the card at imgsz 512, batch 8 (the repo's training
+   configuration), full width, the flagship weights carried into the train
+   tree (``weights.train_from_deploy``), on 16 train and 8 val seeded
+   synthetic pages written as PNG with their text masks and line quads
+   (``synthetic_page(..., truth=True)``): one step on the card against the
+   same step on the CPU (loss within 1e-4 relative, gradients within 1e-3
+   in relative L2 over the trainable tree), 20 steps on one batch (a
+   finite loss that falls; ms a step, steps/s, peak memory),
+   ``seg_trainer.train`` for 2 epochs (its ``unet_last.ctd`` written), two
+   runs of 3 steps from that checkpoint with bit-identical losses, and a
+   pixel P/R/F1 eval;
+14. the DB trainer the same way, grafted from the seg state, ``loss:
+   bce``; its eval (``db_trainer.eval_model``) with every launch count set
+   to 0 just before and read just after, and in a profiler trace, must
+   launch K6 binarize and K2, each bit-equal to its plain version on the
+   eval's own maps, and its quads must equal the CPU representer's on the
+   same maps; the trained heads go back into a deploy
+   tree, through ``save_compact`` and ``load_npz``, and the port's
+   ``TextDetector`` serves a page from it.
 
-Prints ``{"kernels": [...]}`` on a line of its own (every kernel with its
-event ``ms`` and its ``device_ms`` a launch on the card's clock), and as its
-last line
+Prints ``{"train": {...}}`` (phases 13-14) and ``{"kernels": [...]}`` on
+lines of their own (every kernel with its event ``ms`` and its
+``device_ms`` a launch on the card's clock), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
 not 0; without a CUDA device, or outside a checkout, it exits 1 before
 printing any result.
@@ -125,8 +144,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def synthetic_page(rng, h: int, w: int, colour: bool):
-    """Light page with speech bubbles of glyph-like dark strokes."""
+def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
+    """Light page with speech bubbles of glyph-like dark strokes.  With
+    ``truth``, also the text mask (uint8 0/255, the strokes left on the
+    page) and each text line's quad (x0, y0, x1, y0, x1, y1, x0, y1 around
+    its remaining strokes): (page, mask, quads).  The draws from ``rng`` are
+    the same either way."""
     import numpy as np
 
     yy, xx = np.mgrid[0:h, 0:w]
@@ -134,6 +157,7 @@ def synthetic_page(rng, h: int, w: int, colour: bool):
     page = np.repeat(base[..., None], 3, axis=2)
     if colour:
         page = page * np.array([0.85, 0.95, 1.0]) + np.array([10.0, 0.0, -15.0])
+    lines = []  # the stroke rectangles (y0, y1, x0, x1) of each text line
     for _ in range(int(rng.integers(4, 8))):
         cy, cx = rng.integers(h // 8, h - h // 8), rng.integers(w // 8, w - w // 8)
         ry, rx = rng.integers(h // 14, h // 6), rng.integers(w // 14, w // 6)
@@ -142,6 +166,7 @@ def synthetic_page(rng, h: int, w: int, colour: bool):
         cell = int(rng.integers(14, 26))
         vertical = rng.random() < 0.5
         for r in range(-ry // 2, ry // 2 - cell, cell + cell // 3):
+            rects = []
             for c in range(-rx // 2, rx // 2 - cell, cell + 2):
                 y0, x0 = (cy + c, cx + r) if vertical else (cy + r, cx + c)
                 if not (0 <= y0 < h - cell and 0 <= x0 < w - cell):
@@ -152,15 +177,32 @@ def synthetic_page(rng, h: int, w: int, colour: bool):
                         y = y0 + int(rng.integers(0, cell - t))
                         a, b = sorted(rng.integers(0, cell, 2))
                         page[y:y + t, x0 + a:x0 + b + 1] = 25
+                        rects.append((y, y + t, x0 + a, x0 + b + 1))
                     else:  # vertical stroke
                         x = x0 + int(rng.integers(0, cell - t))
                         a, b = sorted(rng.integers(0, cell, 2))
                         page[y0 + a:y0 + b + 1, x:x + t] = 25
+                        rects.append((y0 + a, y0 + b + 1, x, x + t))
+            lines.append(rects)
     page = np.clip(page, 0, 255).astype(np.uint8)
     if not colour:
         page[..., 1] = page[..., 0]
         page[..., 2] = page[..., 0]
-    return page
+    if not truth:
+        return page
+    text = (page == 25).all(axis=2)
+    quads = []
+    for rects in lines:
+        if not rects:
+            continue
+        own = np.zeros_like(text)
+        for y0, y1, x0, x1 in rects:
+            own[y0:y1, x0:x1] = True
+        ys, xs = np.nonzero(own & text)  # later bubbles paint over earlier strokes
+        if len(ys):
+            x0, y0, x1, y1 = int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1
+            quads.append([x0, y0, x1, y0, x1, y1, x0, y1])
+    return page, text.astype(np.uint8) * 255, np.array(quads, np.int64).reshape(-1, 8)
 
 
 def serpentine(s: int):
@@ -931,6 +973,334 @@ def check_k5(dev) -> int:
     return 0
 
 
+def write_pages(root: str, rng, n: int) -> str:
+    """``n`` seeded synthetic pages written by the port's PNG writer, each
+    with its text mask (``mask-*.png``) and line quads (``line-*.txt``),
+    the layout both trainers' datasets read."""
+    import numpy as np
+
+    from comic_text_detector_tpu_torch.utils.io import imwrite
+
+    os.makedirs(root, exist_ok=True)
+    sizes = [(768, 544), (704, 512), (832, 576), (640, 448)]
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        page, mask, quads = synthetic_page(rng, h, w, colour=i % 3 == 1, truth=True)
+        imwrite(os.path.join(root, f"p{i:02d}.png"), page)
+        imwrite(os.path.join(root, f"mask-p{i:02d}.png"), mask)
+        np.savetxt(os.path.join(root, f"line-p{i:02d}.txt"), quads, fmt="%d")
+    return root
+
+
+def grad_gap(a, b) -> tuple:
+    """(relative L2 over all trainable gradients, worst leaf's max-abs gap
+    over its max-abs) of model ``a`` against model ``b``."""
+    import torch
+
+    num = den = 0.0
+    worst = 0.0
+    gb = dict(b.named_parameters())
+    for k, p in a.named_parameters():
+        if p.grad is None:
+            continue
+        d = p.grad.double().cpu() - gb[k].grad.double().cpu()
+        ref = gb[k].grad.double().cpu()
+        num += float(torch.sum(d * d))
+        den += float(torch.sum(ref * ref))
+        worst = max(worst, float(d.abs().max()) / max(float(ref.abs().max()), 1e-30))
+    return (num / max(den, 1e-300)) ** 0.5, worst
+
+
+def step_kernels(fn, reps: int) -> dict:
+    """Device ms and launches a call of ``fn`` by kernel name (CUPTI through
+    torch.profiler, averaged over ``reps`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / reps / 1e3, e.count / reps) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def train_phase(name: str, card: str, smi: str, trainer, make_state, loader, to_step, step, run_trainer,
+                ckpt: str):
+    """The checks both trainers share, on the card at imgsz 512, batch 8:
+    one step against the same step on the CPU, 20 steps on a fixed batch
+    (a finite loss that falls; ms a step, peak memory), the trainer's own
+    ``train`` (its checkpoint written), and two runs of the next 3 steps
+    from that checkpoint (bit-identical losses)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
+
+    batches = list(loader)
+    fixed = batches[0]
+    on = {d: to_step(fixed, d) for d in ("cpu", card)}
+    states = {d: make_state(d) for d in ("cpu", card)}
+    t0 = time.perf_counter()
+    losses = {d: float(step(states[d], on[d])) for d in ("cpu", card)}
+    cpu_s = time.perf_counter() - t0
+    rel = abs(losses[card] - losses["cpu"]) / abs(losses["cpu"])
+    l2, worst = grad_gap(states[card].model, states["cpu"].model)
+    phase(f"  {name}: one step, card {losses[card]:.7f} / CPU {losses['cpu']:.7f} (loss rel {rel:.2e}), "
+          f"gradients rel L2 {l2:.2e}, worst leaf {worst:.2e} of its max-abs ({cpu_s:.1f} s with the CPU's)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"{name}: card and CPU losses differ by {rel:.2e} relative (limit 1e-4)")
+    if not l2 <= 1e-3:
+        raise AssertionError(f"{name}: card and CPU gradients differ by {l2:.2e} in relative L2 (limit 1e-3)")
+    del states
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_state(card)
+    seq = []
+    for i in range(20):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        seq.append(step(state, on[card]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 18
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30  # the model, optimizer and steps
+    seq = [float(x) for x in seq]
+    phase(f"  {name}: 20 steps on one batch, loss {seq[0]:.5f} -> {seq[-1]:.5f}; {ms:.2f} ms a step "
+          f"({1e3 / ms:.2f} steps/s), peak memory {peak:.2f} GiB; {smi}")
+    if not (np.isfinite(seq).all() and seq[-1] < seq[0]):
+        raise AssertionError(f"{name}: the loss on a fixed batch did not fall: {seq}")
+    by_kernel = step_kernels(lambda: step(state, on[card]), 3)
+    busy = sum(v[0] for v in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    phase(f"  {name}: device busy {busy:.2f} ms a step (CUPTI), idle share {1 - busy / ms:.3f}; top kernels (ms, "
+          "launches a step): " + ", ".join(f"{k[:60]} {v[0]:.2f} x{v[1]:g}" for k, v in top) + f"; {smi}")
+    # the cost of bit-for-bit steps: the same steps with cuDNN free to pick
+    # non-deterministic algorithms (TF32 still off); a measurement only
+    from comic_text_detector_tpu_torch.training import steps as steps_mod
+
+    deterministic = steps_mod._cudnn
+    steps_mod._cudnn = lambda: torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                                          allow_tf32=False)
+    try:
+        for i in range(12):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            step(state, on[card])
+        torch.cuda.synchronize()
+    finally:
+        steps_mod._cudnn = deterministic
+    ms_free = (time.perf_counter() - t0) * 1e3 / 10
+    phase(f"  {name}: {ms_free:.2f} ms a step with cuDNN's non-deterministic algorithms allowed; {smi}")
+
+    t0 = time.perf_counter()
+    out = run_trainer()
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    phase(f"  {name}: {trainer.__name__.rsplit('.', 1)[-1]}.train, {out['steps']} steps with 2 evals and checkpoints, "
+          f"{trainer_s:.2f} s ({out['steps'] / trainer_s:.3f} steps/s with data loading); {smi}")
+    if not os.path.exists(ckpt) or not os.path.exists(ckpt + ".meta.json"):
+        raise AssertionError(f"{name}: {ckpt} was not written")
+
+    runs = []
+    for _ in range(2):
+        st = ckpt_lib.restore(ckpt, make_state(card))["state"]
+        runs.append(torch.stack([step(st, to_step(b, card)).detach() for b in batches[:3]]).cpu())
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"{name}: two runs from {os.path.basename(ckpt)} differ: {runs}")
+    phase(f"  {name}: 3 steps from {os.path.basename(ckpt)}, twice: bit-identical losses {runs[0].tolist()}")
+    return out, {"ms_a_step": ms, "steps_per_s": 1e3 / ms, "peak_gib": peak, "loss_20_steps": [seq[0], seq[-1]],
+                 "busy_ms_a_step": busy, "idle_share": 1 - busy / ms, "ms_a_step_nondeterministic": ms_free,
+                 "top_kernels": {k[:80]: v for k, v in top},
+                 "card_vs_cpu_loss_rel": rel, "card_vs_cpu_grad_rel_l2": l2, "card_vs_cpu_grad_worst_leaf": worst,
+                 "trainer_s": trainer_s, "trainer_steps": out["steps"], "restore_losses": runs[0].tolist()}
+
+
+def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -> dict:
+    """Phases 13-14: the seg and DB trainers on the card, imgsz 512, batch 8
+    (scripts/train_flagship.py's configuration), from the flagship weights
+    carried into the train trees, on 2 x ``bs`` train and ``bs`` val seeded
+    synthetic pages."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from comic_text_detector_tpu_torch.data import db_dataset, seg_dataset
+    from comic_text_detector_tpu_torch.ops import cc_kernels as K
+    from comic_text_detector_tpu_torch.ops import finalize as K6
+    from comic_text_detector_tpu_torch.ops.geometry import iou_convex
+    from comic_text_detector_tpu_torch.pipeline import TextDetector
+    from comic_text_detector_tpu_torch.postproc.db_rep import SegDetectorRepresenter
+    from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
+    from comic_text_detector_tpu_torch.training import db_trainer, seg_trainer
+    from comic_text_detector_tpu_torch.training.metrics import QuadMetric, pixel_prf1
+    from comic_text_detector_tpu_torch.training.steps import (
+        Optimizer, create_db_train_state, create_seg_train_state, db_eval_step, db_train_step, seg_eval_step,
+        seg_train_step,
+    )
+    from comic_text_detector_tpu_torch.weights import (
+        deploy_from_train, load_npz, train_from_deploy, variables_from_state_dict,
+    )
+
+    card = str(dev)
+    work = tempfile.mkdtemp(prefix="ctd_train_")
+    try:
+        rng = np.random.default_rng(14)
+        t0 = time.perf_counter()
+        train_dir = write_pages(os.path.join(work, "train"), rng, 2 * bs)
+        val_dir = write_pages(os.path.join(work, "val"), rng, bs)
+        phase(f"  {3 * bs} synthetic pages written as PNG in {time.perf_counter() - t0:.1f} s")
+        deploy = load_npz(WEIGHTS)
+        seg_vars = train_from_deploy(deploy)
+        data = {"train_img_dir": train_dir, "val_img_dir": val_dir, "imgsz": imgsz, "augment": True,
+                "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
+        results = {}
+
+        phase(f"13/14 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        hyp_seg = {"data": data, "model": {"act": "leaky"},
+                   "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
+                             "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
+                             "warmup_steps": 2}}
+
+        def seg_state(d):
+            model = seg_trainer.build_model(seg_vars, "leaky", with_db=False).to(d)
+            return create_seg_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.9))
+
+        def seg_batch(b, d):
+            return tuple(torch.from_numpy(x).to(d) for x in b)
+
+        _, seg_loader = seg_dataset.create_dataloader(train_dir, "", imgsz, bs, as_uint8=True)
+        seg_out, results["seg"] = train_phase(
+            "seg", card, smi, seg_trainer, seg_state, seg_loader, seg_batch,
+            lambda st, b: seg_train_step(st, *b)["loss"],
+            lambda: seg_trainer.train(hyp_seg, variables=seg_vars, device=card),
+            os.path.join(work, "unet_last.ctd"))
+        st = seg_out["state"]
+        _, val_loader = seg_dataset.create_dataloader(val_dir, "", imgsz, min(4, bs), as_uint8=True)
+        val = list(val_loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = torch.zeros(3, dtype=torch.float64, device=dev)
+        for imgs, masks in val:
+            m = seg_eval_step(st, torch.from_numpy(imgs).to(dev), torch.from_numpy(masks).to(dev))
+            sums += torch.stack([m["tp"], m["gt"], m["pr"]]).double()
+        r, p, f1 = pixel_prf1(*sums.tolist())
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        phase(f"  seg eval on {bs} pages: pixel P {p:.4f} R {r:.4f} F1 {f1:.4f}, {eval_ms:.1f} ms; {smi}")
+        if not np.isfinite([p, r, f1]).all():
+            raise AssertionError("seg eval gave a non-finite metric")
+        results["seg"].update(eval_ms=eval_ms, pixel_p=p, pixel_r=r, pixel_f1=f1, best_f1=seg_out["best_f1"])
+        unet_vars = variables_from_state_dict(st.model.state_dict())
+        del st, seg_out
+
+        phase(f"14/14 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
+        hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
+                  "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
+                            "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
+                            "loss": "bce", "warmup_steps": 2}}
+        keys = ("imgs", "shrink_map", "shrink_mask", "threshold_map", "threshold_mask")
+
+        def db_state(d):
+            model = seg_trainer.build_model(db_vars, "leaky", with_db=True).to(d)
+            return create_db_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.937))
+
+        def db_batch(b, d):
+            return {k: torch.from_numpy(b[k]).to(d) for k in keys}
+
+        _, db_loader = db_dataset.create_dataloader(train_dir, "", imgsz, bs, as_uint8=True)
+        db_out, results["db"] = train_phase(
+            "DB", card, smi, db_trainer, db_state, db_loader, db_batch,
+            lambda st, b: db_train_step(st, b, use_bce=True)["loss"],
+            lambda: db_trainer.train(hyp_db, variables=train_from_deploy(deploy, with_db=True),
+                                     unet_variables=unet_vars, device=card),
+            os.path.join(work, "db_last.ctd"))
+        st = db_out["state"]
+
+        # the eval: K6 binarize and K2 must launch, seen by their counts and
+        # by kernel name in a profiler trace
+        _, dval_loader = db_dataset.create_dataloader(val_dir, "", imgsz, bs, as_uint8=True, with_ann=True)
+        rep = SegDetectorRepresenter(thresh=0.5, device=card)
+        db_trainer.eval_model(st, dval_loader, rep, QuadMetric())  # warm
+        for fn in counters.values():
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rpf = db_trainer.eval_model(st, dval_loader, rep, QuadMetric())
+            torch.cuda.synchronize()
+        eval_counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        names = {e.key for e in prof.key_averages()}
+        by_name = {"K6 binarize": any("finalize_kernel" in n and "Above" in n for n in names),
+                   "K2": any("gather_kernel<true>" in n for n in names)}
+        phase(f"  DB eval: launches {eval_counts}; in the trace by kernel name: {by_name}")
+        if eval_counts.get("K6 binarize", 0) <= 0 or eval_counts.get("K2", 0) <= 0 or not all(by_name.values()):
+            raise AssertionError(f"the DB eval did not launch K6 binarize and K2: {eval_counts}, {by_name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rpf = db_trainer.eval_model(st, dval_loader, rep, QuadMetric())
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        phase(f"  DB eval on {bs} pages: R {rpf[0]:.4f} P {rpf[1]:.4f} F {rpf[2]:.4f}, {eval_ms:.1f} ms; {smi}")
+        vb = next(iter(dval_loader))
+        preds = db_eval_step(st, torch.from_numpy(vb["imgs"]).to(dev))
+        # the path's two kernels against their plain versions on the path's
+        # own inputs: each page's shrink plane read in place, its bitmap
+        for page in preds[:, 0]:
+            bits = K6.binarize(page, 0.5)
+            if not torch.equal(bits, K6.binarize_plain(page, 0.5)):
+                raise AssertionError("K6 binarize differs from its plain version on a DB eval map")
+            if not torch.equal(K.cc_windows_local(bits[None]), K.cc_windows_local_plain(bits[None])):
+                raise AssertionError("K2 differs from its plain version on a DB eval bitmap")
+        phase(f"  K6 binarize and K2 bit-equal to their plain versions on the eval's {preds.shape[0]} maps")
+        gb, gs = rep(vb, preds)
+        cb, cs = SegDetectorRepresenter(thresh=0.5, device="cpu")(vb, preds.cpu())
+        if not (all(np.array_equal(a, b) for a, b in zip(gb, cb))
+                and all(np.allclose(a, b, rtol=0, atol=1e-5) for a, b in zip(gs, cs))):
+            raise AssertionError("the DB eval's quads on the card differ from the CPU representer's")
+        low = QuadMetric()
+        low = low.gather_measure([low.validate_measure(vb, (gb, gs), 0.3)])
+        # the metric on these batches: the ground truth as the prediction
+        # scores 1; and how near the net's quads come to the ground truth
+        self_q = QuadMetric()
+        self_q = self_q.gather_measure([self_q.validate_measure(
+            vb, ([np.asarray(p) for p in vb["text_polys"]], [np.ones(len(p)) for p in vb["text_polys"]]))])
+        if self_q["fmeasure"].avg < 0.99:
+            raise AssertionError(f"QuadMetric of the ground truth against itself: {self_q['fmeasure'].avg}")
+        best = [max((iou_convex(q, g) for q in boxes), default=0.0)
+                for boxes, gts in zip(gb, vb["text_polys"]) for g in gts]
+        phase(f"  DB eval metric: the ground truth against itself F {self_q['fmeasure'].avg:.4f}; each ground-truth "
+              f"line's best IoU with the net's quads: mean {np.mean(best):.3f}, median {np.median(best):.3f}, "
+              f"over 0.5 {np.mean(np.asarray(best) > 0.5):.3f} ({len(best)} lines)")
+        phase(f"  DB eval quads equal to the CPU representer's on the same maps: {[len(b) for b in gb]} a page; "
+              f"scores {np.concatenate(gs).mean() if sum(map(len, gs)) else 0:.3f} on average; at box_thresh 0.3 "
+              f"R {low['recall'].avg:.4f} P {low['precision'].avg:.4f} F {low['fmeasure'].avg:.4f}")
+        results["db"].update(eval_ms=eval_ms, recall=rpf[0], precision=rpf[1], fmeasure=rpf[2],
+                             eval_launches=eval_counts, quads=[len(b) for b in gb],
+                             rpf_box_thresh_0_3=[low["recall"].avg, low["precision"].avg, low["fmeasure"].avg],
+                             gt_best_iou_mean=float(np.mean(best)))
+
+        # the trained heads back into a deploy tree, through the compact npz,
+        # served by the port's TextDetector
+        trained = deploy_from_train(variables_from_state_dict(st.model.state_dict()),
+                                    deploy_from_train(unet_vars, deploy))
+        path = os.path.join(work, "trained.npz")
+        ckpt_lib.save_compact(path, trained)
+        mask, mask_ref, blks = TextDetector(path, input_size=1024, device=card)(
+            synthetic_page(rng, 1400, 1000, colour=False))
+        if mask.shape != (1400, 1000) or mask_ref.shape != (1400, 1000):
+            raise AssertionError(f"TextDetector on the trained checkpoint gave masks of {mask.shape}")
+        phase(f"  the trained deploy tree, saved compact and loaded by TextDetector, served a page: "
+              f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
+        return results
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -946,7 +1316,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/12 device")
+    phase("1/14 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -957,13 +1327,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/12 build kernels (nvcc, one per source, in parallel)")
+    phase("2/14 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/12 kernels vs plain versions, bit for bit")
+    phase("3/14 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -1034,7 +1404,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/12 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/14 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -1214,7 +1584,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/12 output check: card vs the port's CPU route")
+    phase("5/14 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -1252,7 +1622,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/12 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/14 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -1301,7 +1671,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/12 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/14 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -1322,7 +1692,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/12 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/14 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -1464,7 +1834,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/12 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/14 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -1495,10 +1865,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/12 K5 vs its plain version, bit for bit")
+    phase("10/14 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/12 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/14 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1576,7 +1946,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/12 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/14 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
@@ -1828,6 +2198,8 @@ def main() -> None:
                       "k5_ms": {f"{n} {d} {sz}": v for (n, d, sz), v in k5.items()},
                       "k5_library": {f"{n} {d} {sz}": v for (n, d, sz), v in k5_library.items()},
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
+    train = train_phases(dev, smi, counters)
+    print(json.dumps({"train": train, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -210,5 +210,10 @@ def parse_graph(cfg: dict, max_layer: int | None = None) -> GraphSpec:
     )
 
 
+def backbone_spec(cfg: dict | None = None) -> GraphSpec:
+    """Graph truncated to the 10 backbone layers used by the seg/det heads."""
+    return parse_graph(cfg or YOLOV5S_CFG, max_layer=max(OUT_INDICES))
+
+
 def full_spec(cfg: dict | None = None) -> GraphSpec:
     return parse_graph(cfg or YOLOV5S_CFG)

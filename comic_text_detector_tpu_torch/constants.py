@@ -9,6 +9,11 @@ utils/textblock.py:9-10).  Own copy of the JAX package's ``constants.py``.
 LANG_LIST = ["eng", "ja", "unknown"]
 LANGCLS2IDX = {"eng": 0, "ja": 1, "unknown": 2}
 
+# Forward modes of the train-time composite model (reference basemodel.py:17-19).
+TEXTDET_MASK = 0
+TEXTDET_DET = 1
+TEXTDET_INFERENCE = 2
+
 # refine_mask modes (reference utils/textmask.py:13-14).
 REFINEMASK_INPAINT = 0
 REFINEMASK_ANNOTATION = 1

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from comic_text_detector_tpu_torch.constants import TEXTDET_DET, TEXTDET_INFERENCE, TEXTDET_MASK
 from comic_text_detector_tpu_torch.models.blocks import C3
 from comic_text_detector_tpu_torch.ops import nn as tnn
 
@@ -51,15 +52,24 @@ class DoubleConvC3(nn.Module):
 
 
 class UnetHead(nn.Module):
-    """U-Net decoder over the 5 backbone taps -> full-res sigmoid text mask,
-    plus the (f80, f40, u40) features the DB head reads (inference mode of
-    reference UnetHead.forward, basemodel.py:62-78)."""
+    """U-Net decoder over the 5 backbone taps -> full-res sigmoid text mask
+    (reference UnetHead.forward, basemodel.py:62-78).
 
-    def __init__(self, act: str = "leaky"):
+    ``forward_mode``: TEXTDET_INFERENCE returns (mask, (f80, f40, u40)), the
+    features the DB head reads; TEXTDET_MASK the mask alone (U-Net
+    training); TEXTDET_DET stops at u40 and returns (f80, f40, u40) (DB
+    training).  ``trunk_only`` builds only the layers DET mode runs
+    (down_conv1, upconv0, upconv2), as the JAX package's DET-mode
+    initialization creates them.
+    """
+
+    def __init__(self, act: str = "leaky", trunk_only: bool = False):
         super().__init__()
         self.down_conv1 = DoubleConvC3(512, 512, stride=2, act=act)
         self.upconv0 = DoubleConvUpC3(512, 512, 256, act=act)
         self.upconv2 = DoubleConvUpC3(768, 512, 256, act=act)
+        if trunk_only:
+            return
         self.upconv3 = DoubleConvUpC3(512, 512, 256, act=act)
         self.upconv4 = DoubleConvUpC3(384, 256, 128, act=act)
         self.upconv5 = DoubleConvUpC3(192, 128, 64, act=act)
@@ -68,14 +78,18 @@ class UnetHead(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, f160, f80, f40, f20, f3):
+    def forward(self, f160, f80, f40, f20, f3, forward_mode: int = TEXTDET_INFERENCE):
         d10 = self.down_conv1(f3)
         u20 = self.upconv0(d10)
         u40 = self.upconv2(torch.cat([f20, u20], dim=1))
+        if forward_mode == TEXTDET_DET:
+            return f80, f40, u40
         u80 = self.upconv3(torch.cat([f40, u40], dim=1))
         u160 = self.upconv4(torch.cat([f80, u80], dim=1))
         u320 = self.upconv5(torch.cat([f160, u160], dim=1))
         mask = self.upconv6[1](self.upconv6[0](u320).float())
+        if forward_mode == TEXTDET_MASK:
+            return mask
         return mask, (f80, f40, u40)
 
 
@@ -96,9 +110,13 @@ def _tower(in_ch: int, conv_bias: bool) -> nn.Sequential:
 
 class DBHead(nn.Module):
     """DBNet head: shrink (prob) map + threshold map (reference DBHead,
-    basemodel.py:83-160).  Eval returns (B, 2, H, W) = cat(shrink, thresh);
-    ``step_function`` is the differentiable binarization with k=50 the
-    training paths use.  Owns its private copies of upconv3/upconv4."""
+    basemodel.py:83-160).  Owns its private copies of upconv3/upconv4.
+
+    In eval mode returns (B, 2, H, W) = cat(shrink, thresh).  In train mode
+    returns (B, 3, H, W) = cat(shrink, thresh, binary), binary the
+    differentiable binarization ``step_function`` with k=50, and a fourth
+    channel of raw shrink logits when ``shrink_with_sigmoid=False``
+    (basemodel.py:115-120), as the JAX package's ``train=True`` does."""
 
     def __init__(self, in_channels: int = 64, k: float = 50.0, shrink_with_sigmoid: bool = True,
                  act: str = "leaky"):
@@ -120,8 +138,14 @@ class DBHead(nn.Module):
         x = self.upconv4(torch.cat([f80, u80], dim=1))
         x = self.conv(x)
         thresh = torch.sigmoid(self.thresh(x).float())
-        shrink = torch.sigmoid(self.binarize(x).float())
-        return torch.cat([shrink, thresh], dim=1)
+        logits = self.binarize(x).float()
+        shrink = torch.sigmoid(logits)
+        if not self.training:
+            return torch.cat([shrink, thresh], dim=1)
+        outs = [shrink, thresh, self.step_function(shrink, thresh)]
+        if not self.shrink_with_sigmoid:
+            outs.append(logits)
+        return torch.cat(outs, dim=1)
 
     def step_function(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return 1.0 / (1.0 + torch.exp(-self.k * (x - y)))

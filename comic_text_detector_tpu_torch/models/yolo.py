@@ -85,7 +85,9 @@ class YoloGraph(nn.Module):
 
     ``forward`` returns ``(dets, taps)``: the decoded Detect rows
     (B, N, 5+nc) and the backbone feature maps at ``out_indices`` for the
-    seg/DB heads (reference Model._forward_once, yolo.py:115-134).
+    seg/DB heads (reference Model._forward_once, yolo.py:115-134).  Built
+    from ``config.backbone_spec`` it holds the ten backbone layers alone and
+    ``dets`` is None (the train-time composite's backbone).
     """
 
     def __init__(self, spec: GraphSpec, out_indices: Tuple[int, ...] = OUT_INDICES, act: str = "silu"):

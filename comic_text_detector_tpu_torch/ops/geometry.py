@@ -3,13 +3,16 @@ cv2.
 
 Own copy of the JAX package's ``ops/geometry.py`` functions of the same
 names that the port's host stages call: the DB decode's corner ordering,
-the text-line merge's convex overlap test, and what ``boxes_from_stats`` and
-``polygons_from_stats`` need:
+the text-line merge's convex overlap test, what ``boxes_from_stats`` and
+``polygons_from_stats`` need, and what the training metrics and the DB
+ground-truth maps need:
 
 * shoelace area and perimeter                (shapely Polygon.area/.length)
 * convex hull (monotone chain)               (cv2.convexHull)
 * min-area rotated rect (rotating calipers)  (cv2.minAreaRect/boxPoints)
 * polygon offset with round joins            (pyclipper.PyclipperOffset)
+* convex clipping, intersection and IoU      (shapely intersection)
+* polygon rasterization                      (cv2.fillPoly)
 """
 
 from __future__ import annotations
@@ -230,6 +233,35 @@ def clip_halfplane(poly: np.ndarray, point: np.ndarray, normal: np.ndarray) -> n
     return np.array(out) if out else np.zeros((0, 2))
 
 
+def clip_polygon_convex(subject: np.ndarray, clip: np.ndarray) -> np.ndarray:
+    """Intersection of ``subject`` with convex ``clip`` (Sutherland–Hodgman)."""
+    clip = np.asarray(clip, np.float64)
+    if shoelace_area(clip) < 0:
+        clip = clip[::-1]
+    region = np.asarray(subject, np.float64)
+    c = clip.mean(0)
+    for i in range(len(clip)):
+        p, q = clip[i], clip[(i + 1) % len(clip)]
+        nrm = _unit_normal_outward(q - p, (p + q) / 2, c)
+        region = clip_halfplane(region, p, nrm)
+        if len(region) == 0:
+            return region
+    return region
+
+
+def intersection_area_convex(a: np.ndarray, b: np.ndarray) -> float:
+    inter = clip_polygon_convex(a, b)
+    if len(inter) < 3:
+        return 0.0
+    return abs(shoelace_area(inter))
+
+
+def iou_convex(a: np.ndarray, b: np.ndarray) -> float:
+    ia = intersection_area_convex(a, b)
+    ua = abs(shoelace_area(np.asarray(a, np.float64))) + abs(shoelace_area(np.asarray(b, np.float64))) - ia
+    return ia / ua if ua > 0 else 0.0
+
+
 def convex_polygons_intersect(a: np.ndarray, b: np.ndarray) -> bool:
     """Separating-axis test (touching counts as intersecting, like shapely)."""
     a = np.asarray(a, np.float64)
@@ -244,3 +276,52 @@ def convex_polygons_intersect(a: np.ndarray, b: np.ndarray) -> bool:
             if pa.max() < pb.min() or pb.max() < pa.min():
                 return False
     return True
+
+
+def fill_polygon(poly: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Rasterize a polygon into a (h, w) uint8 mask (even-odd scanline with
+    boundary-inclusive rounding, cv2.fillPoly-compatible within ±1 px)."""
+    return fill_polygons([poly], h, w)
+
+
+def fill_polygons(polys, h: int, w: int) -> np.ndarray:
+    mask = np.zeros((h, w), np.uint8)
+    for poly in polys:
+        poly = np.asarray(poly, np.float64)
+        if len(poly) < 3:
+            continue
+        ymin = max(int(math.floor(poly[:, 1].min())), 0)
+        ymax = min(int(math.ceil(poly[:, 1].max())), h - 1)
+        n = len(poly)
+        for y in range(ymin, ymax + 1):
+            xs = []
+            for i in range(n):
+                y1, y2 = poly[i, 1], poly[(i + 1) % n, 1]
+                x1, x2 = poly[i, 0], poly[(i + 1) % n, 0]
+                if (y1 <= y < y2) or (y2 <= y < y1):
+                    t = (y - y1) / (y2 - y1)
+                    xs.append(x1 + t * (x2 - x1))
+                elif y1 == y2 == y:  # horizontal edge on this scanline
+                    xs.extend([min(x1, x2), max(x1, x2)])
+            xs.sort()
+            for j in range(0, len(xs) - 1, 2):
+                x0 = max(int(math.ceil(xs[j] - 0.5)), 0)
+                x1_ = min(int(math.floor(xs[j + 1] + 0.5)), w - 1)
+                if x1_ >= x0:
+                    mask[y, x0 : x1_ + 1] = 1
+        # cv2.fillPoly also paints the outline itself: rasterize edges
+        for i in range(n):
+            _draw_line(mask, poly[i], poly[(i + 1) % n])
+    return mask
+
+
+def _draw_line(mask: np.ndarray, p0, p1) -> None:
+    """Bresenham-style edge rasterization (outline pixels, clipped)."""
+    h, w = mask.shape
+    x0, y0 = int(round(p0[0])), int(round(p0[1]))
+    x1, y1 = int(round(p1[0])), int(round(p1[1]))
+    steps = max(abs(x1 - x0), abs(y1 - y0), 1)
+    xs = np.round(np.linspace(x0, x1, steps + 1)).astype(int)
+    ys = np.round(np.linspace(y0, y1, steps + 1)).astype(int)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    mask[ys[keep], xs[keep]] = 1

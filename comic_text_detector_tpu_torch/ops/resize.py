@@ -2,9 +2,12 @@
 
 Counterpart of the JAX package's ``ops/resize.py``: the letterbox
 arithmetic, the cv2-exact uint8 resize as torch on the device (11-bit fixed
-point, bit-equal to cv2.resize INTER_LINEAR), its NumPy twin, and the host
+point, bit-equal to cv2.resize INTER_LINEAR), its NumPy twin, the host
 resize the JAX package uses for the grey mask (``resize_bilinear_fast``:
-Pillow's bilinear upscale, reproduced in NumPy, or cv2-exact).  No PIL.
+Pillow's bilinear upscale, reproduced in NumPy, or cv2-exact), and the
+training loaders' host letterbox and aspect-keeping resize, whose uint8
+path is Pillow's bilinear resample up or down, reproduced in NumPy.  No
+PIL.
 """
 
 from __future__ import annotations
@@ -182,7 +185,9 @@ def _pil_bilinear_coefs(in_size: int, out_size: int):
     taps = np.arange(ksize)[None, :]
     w = 1.0 - np.abs((taps + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
     w = np.where((taps < xmax[:, None]) & (w > 0.0), w, 0.0)
-    ww = w.sum(axis=1, keepdims=True)
+    ww = np.zeros((out_size, 1))
+    for t in range(ksize):  # in tap order, as Pillow sums them
+        ww[:, 0] += w[:, t]
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
     fixed = w * (1 << _PIL_PRECISION_BITS)
     k = np.where(fixed < 0, np.trunc(-0.5 + fixed), np.trunc(0.5 + fixed)).astype(np.int64)
@@ -209,15 +214,13 @@ def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
 
 def resize_pil_bilinear_u8_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """Bit-exact ``PIL.Image.resize((w, h), BILINEAR)`` of a uint8 (H, W[, C])
-    image, for output sizes at least the input's on both axes (Pillow
-    antialiases downscales with a wider filter; use the cv2-exact resize
-    there).  Horizontal pass first, as Pillow runs it."""
+    image, up or down (a downscale widens the triangle filter by the scale,
+    so it antialiases as Pillow does).  Horizontal pass first, as Pillow
+    runs it."""
     h, w = img.shape[:2]
     oh, ow = out_hw
     if img.dtype != np.uint8:
         raise ValueError(f"resize_pil_bilinear_u8_np: expected uint8, got {img.dtype}")
-    if oh < h or ow < w:
-        raise ValueError(f"resize_pil_bilinear_u8_np: upscales only, got {(h, w)} -> {(oh, ow)}")
     out = img
     if ow != w:
         out = _pil_pass(out, ow, axis=1)
@@ -237,3 +240,40 @@ def resize_bilinear_fast(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray
     if oh >= h and ow >= w and img.dtype == np.uint8:
         return resize_pil_bilinear_u8_np(img, out_hw)
     return resize_bilinear_np(img, out_hw)
+
+
+def letterbox_np(img: np.ndarray, new_shape: int | Tuple[int, int]) -> Tuple[np.ndarray, Tuple[float, float], Tuple[int, int]]:
+    """Host letterbox mirroring the reference API, cv2-exact: returns
+    (img, (r, r), (dw, dh))."""
+    h, w = img.shape[:2]
+    nh, nw, dw, dh, r = letterbox_shape(h, w, new_shape)
+    out = resize_bilinear_np(img, (nh, nw))
+    pad = ((0, dh), (0, dw), (0, 0)) if img.ndim == 3 else ((0, dh), (0, dw))
+    return np.pad(out, pad), (r, r), (dw, dh)
+
+
+def resize_keepasp_np(img: np.ndarray, max_size: int, fast: bool = False) -> np.ndarray:
+    """Aspect-keeping resize (reference resize_keepasp, imgproc_utils.py:119).
+    ``fast=True`` takes Pillow's bilinear resample for uint8 images, as the
+    JAX package's training loaders do; cv2-exact otherwise."""
+    h, w = img.shape[:2]
+    r = min(max_size / h, max_size / w)
+    out_hw = (int(round(h * r)), int(round(w * r)))
+    if fast and img.dtype == np.uint8:
+        if out_hw == (h, w):
+            return img.copy()
+        return resize_pil_bilinear_u8_np(img, out_hw)
+    return resize_bilinear_np(img, out_hw)
+
+
+def letterbox_fast_np(img: np.ndarray, new_shape) -> Tuple[np.ndarray, Tuple[float, float], Tuple[int, int]]:
+    """Letterbox with Pillow's bilinear resample for uint8 images (the
+    training loaders'), cv2-exact otherwise: returns (img, (r, r), (dw, dh))."""
+    h, w = img.shape[:2]
+    nh, nw, dw, dh, r = letterbox_shape(h, w, new_shape)
+    if img.dtype == np.uint8:
+        out = img.copy() if (nh, nw) == (h, w) else resize_pil_bilinear_u8_np(img, (nh, nw))
+    else:
+        out = resize_bilinear_np(img, (nh, nw))
+    pad = ((0, dh), (0, dw), (0, 0)) if img.ndim == 3 else ((0, dh), (0, dw))
+    return np.pad(out, pad), (r, r), (dw, dh)

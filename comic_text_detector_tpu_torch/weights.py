@@ -11,17 +11,24 @@
 * :func:`load_reference_pt` reads a reference-format combined ``.pt``
   (``{'blk_det': {'cfg', 'weights'}, 'text_seg': sd, 'text_det': sd}``),
   whose keys already have the port's layout.
+* The train trees: :func:`train_state_dict_from_jax` /
+  :func:`variables_from_state_dict` carry the JAX ``TextDetTrain``
+  variables (``backbone``, ``seg_net``, ``dbnet``) to the port's
+  ``TextDetTrain`` state dict and back; :func:`train_from_deploy` and
+  :func:`deploy_from_train` move weights between a deploy tree
+  (``blk_det``, ``text_seg``, ``text_det``) and a train tree.
 """
 
 from __future__ import annotations
 
+import copy
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from comic_text_detector_tpu_torch.config import YOLOV5S_CFG, parse_graph
+from comic_text_detector_tpu_torch.config import OUT_INDICES, YOLOV5S_CFG, parse_graph
 
 SUBNETS = ("blk_det", "text_seg", "text_det")
 
@@ -122,6 +129,129 @@ def _anchors_key(spec) -> Tuple[str, torch.Tensor]:
     anchors = torch.tensor(spec.anchors, dtype=torch.float32).view(len(spec.anchors), -1, 2)
     strides = torch.tensor(spec.strides, dtype=torch.float32).view(-1, 1, 1)
     return f"blk_det.model.{detect_idx}.anchors", anchors / strides
+
+
+def train_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``TextDetTrain`` variables (nested numpy dict with ``backbone``,
+    ``seg_net`` and, for DB training, ``dbnet``) -> the port's
+    ``TextDetTrain`` state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    stats = variables.get("batch_stats", {})
+    for subnet, params in variables["params"].items():
+        for k, v in _subnet_state_dict(params, stats.get(subnet, {})).items():
+            out[f"{subnet}.{k}"] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+def _flax_path(tokens: Tuple[str, ...]) -> Tuple[str, ...]:
+    """torch module path -> flax module path (inverse of ``_torch_path``)."""
+    out = []
+    i = 0
+    while i < len(tokens):
+        t = tokens[i]
+        nxt = tokens[i + 1] if i + 1 < len(tokens) else None
+        prev = out[-1] if out else None
+        if t in ("model", "m") and nxt is not None and nxt.isdigit():
+            out.append(f"{t}_{nxt}")
+            i += 2
+            continue
+        if t == "conv" and prev is not None and prev.startswith("upconv") and nxt in ("0", "1", "2"):
+            out.append({"0": "c3", "1": "up", "2": "bn"}[nxt])
+            i += 2
+            continue
+        if t == "0" and prev == "upconv6":
+            i += 1
+            continue
+        if t == "conv" and prev == "down_conv1":
+            out.append("c3")
+        elif t.isdigit() and prev in _SEQ_PARENTS:
+            out.append(f"seq{t}")
+        else:
+            out.append(t)
+        i += 1
+    return tuple(out)
+
+
+def variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port state dict (``TextDetTrain`` or ``TextDetBase``) -> JAX
+    variables ``{'params': ..., 'batch_stats': ...}`` as nested float32
+    numpy dicts: OIHW -> HWIO, (I, O, kh, kw) -> flipped HWIO,
+    weight/bias/running_mean/running_var -> scale/bias/mean/var.  Detect's
+    ``anchors`` buffer and BatchNorm's ``num_batches_tracked`` have no JAX
+    counterpart and are dropped."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        if leaf in ("num_batches_tracked", "anchors"):
+            continue
+        path = _flax_path(tuple(mods))
+        arr = t.detach().cpu().numpy()
+        bn = ".".join(mods) + ".running_mean" in sd
+        if leaf == "running_mean":
+            put(stats, path, "mean", arr)
+        elif leaf == "running_var":
+            put(stats, path, "var", arr)
+        elif leaf == "bias":
+            put(params, path, "bias", arr)
+        elif leaf == "weight" and bn:
+            put(params, path, "scale", arr)
+        elif leaf == "weight" and arr.ndim == 4:
+            if _CONVT_RE.search(key):
+                arr = np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]  # (I, O, kh, kw) -> flipped HWIO
+            else:
+                arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+            put(params, path, "kernel", np.ascontiguousarray(arr))
+        elif leaf == "weight":
+            put(params, path, "kernel", arr)
+        else:
+            raise ValueError(f"unhandled state dict entry {key}")
+    return {"params": params, "batch_stats": stats}
+
+
+# the U-Net layers DB training keeps frozen in its trunk (JAX DET mode)
+_TRUNK = ("down_conv1", "upconv0", "upconv2")
+
+
+def _subtree(tree: Mapping[str, Any], keys=None) -> Dict:
+    return {k: copy.deepcopy(v) for k, v in tree.items() if keys is None or k in keys}
+
+
+def train_from_deploy(deploy: Mapping[str, Any], with_db: bool = False) -> Dict:
+    """Deploy variables -> JAX-layout ``TextDetTrain`` variables:
+    ``backbone`` <- ``blk_det`` layers ``model_0`` .. ``model_9``,
+    ``seg_net`` <- ``text_seg`` (its trunk alone with ``with_db``), and with
+    ``with_db`` ``dbnet`` <- ``text_det``."""
+    out: Dict = {"params": {}, "batch_stats": {}}
+    layers = {k for k in deploy["params"]["blk_det"] if int(k.split("_")[1]) <= max(OUT_INDICES)}
+    trunk = _TRUNK if with_db else None
+    for col in ("params", "batch_stats"):
+        out[col]["backbone"] = _subtree(deploy[col]["blk_det"], layers)
+        out[col]["seg_net"] = _subtree(deploy[col]["text_seg"], trunk)
+        if with_db:
+            out[col]["dbnet"] = _subtree(deploy[col]["text_det"])
+    return out
+
+
+def deploy_from_train(train: Mapping[str, Any], deploy: Mapping[str, Any]) -> Dict:
+    """A deploy tree with trained heads: a copy of ``deploy`` whose
+    ``text_seg`` layers are replaced by ``train``'s ``seg_net`` ones (the
+    trunk alone after DB training) and whose ``text_det`` is ``train``'s
+    ``dbnet`` where it has one.  The backbone stays ``deploy``'s: the
+    trainers keep it frozen."""
+    out = copy.deepcopy(dict(deploy))
+    for col in ("params", "batch_stats"):
+        out[col]["text_seg"].update(_subtree(train[col].get("seg_net", {})))
+        if "dbnet" in train[col]:
+            out[col]["text_det"] = _subtree(train[col]["dbnet"])
+    return out
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], cfg: Optional[dict] = None) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
-``comic_text_detector_tpu_torch`` loads no JAX, flax, PIL or cv2 and no
-module of the JAX package.  Runs in a fresh interpreter, since this test
+``comic_text_detector_tpu_torch`` loads no JAX, flax, optax, PIL or cv2
+and no module of the JAX package.  Runs in a fresh interpreter, since this test
 process imports JAX for the parity tests.  The kernel and decode modules
 are named, so that a module missing from the walk fails the test."""
 
@@ -19,7 +19,7 @@ import comic_text_detector_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "PIL", "cv2", "comic_text_detector_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "comic_text_detector_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("MODULES", len(names))
 print("NAMES", ",".join(names))
@@ -38,7 +38,10 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
     assert int(report["MODULES"]) >= 15
     names = set(report["NAMES"].split(","))
     for module in ("ops.scan_kernels", "ops.cc", "ops.morph", "ops.thresholding", "postproc.db_rep",
-                   "ops.db_decode", "ops.geometry", "ops.nms", "ops.cc_kernels", "ops.finalize"):
+                   "ops.db_decode", "ops.geometry", "ops.nms", "ops.cc_kernels", "ops.finalize",
+                   "training.losses", "training.init", "training.steps", "training.checkpoint",
+                   "training.metrics", "training.seg_trainer", "training.db_trainer", "data.augment",
+                   "data.maps", "data.seg_dataset", "data.db_dataset", "utils.io", "utils.log"):
         assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
 

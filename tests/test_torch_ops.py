@@ -94,14 +94,18 @@ def test_resize_pil_bilinear_matches_pillow(in_hw, out_hw, channels):
 def test_resize_bilinear_fast_routes_as_jax(out_hw):
     """Downscale, mixed (one axis down) and identity take the cv2-exact
     route, a two-axis upscale the Pillow one; all bit-equal to the JAX
-    function, and the non-Pillow routes to the cv2-exact resize."""
+    function, and the non-Pillow routes to the cv2-exact resize.  The
+    Pillow-exact resize itself takes a mixed resize too (the training
+    loaders' letterbox downscales through it), bit-equal to Pillow."""
+    from PIL import Image
+
     img = np.random.default_rng(5).integers(0, 256, (180, 140)).astype(np.uint8)
     got = trs.resize_bilinear_fast(img, out_hw)
     np.testing.assert_array_equal(got, jrs.resize_bilinear_fast(img, out_hw))
     if out_hw[0] < 180 or out_hw[1] < 140:
         np.testing.assert_array_equal(got, trs.resize_cv2exact_u8_np(img, out_hw))
-    with pytest.raises(ValueError, match="upscales only"):
-        trs.resize_pil_bilinear_u8_np(img, (179, 300))
+    np.testing.assert_array_equal(trs.resize_pil_bilinear_u8_np(img, (179, 300)),
+                                  np.asarray(Image.fromarray(img).resize((300, 179), Image.BILINEAR)))
 
 
 def _tied_preds(seed: int, n: int = 700) -> np.ndarray:
