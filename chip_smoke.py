@@ -112,9 +112,28 @@ before it starts so a stall shows where it stopped:
    eval's own maps, and its quads must equal the CPU representer's on the
    same maps; the trained heads go back into a deploy
    tree, through ``save_compact`` and ``load_npz``, and the port's
-   ``TextDetector`` serves a page from it.
+   ``TextDetector`` serves a page from it;
+15. the YOLO block trainer on the card the same way, at imgsz 512, batch 8
+   (``scripts/train_flagship.py``'s stage 1: adam, lr0 2e-3, lrf 0.05,
+   momentum 0.9, hsv 0.5, flip 0.5, neg 0.1), full width and depth,
+   flagship_r2's ``blk_det`` carried into ``BlkDetTrain``, on the same
+   pages with one YOLO block a bubble (``p*.txt``): the dense targets of
+   colliding labels (``colliding_labels``) equal on the card and the CPU
+   and bit-identical over 20 repeats; one step against the CPU's (the
+   loss and its three terms within 1e-4 relative, gradients within 1e-3
+   in relative L2, as phases 13-14); 20 falling steps (ms a step, kernel
+   launches a step); ``yolo_trainer.train`` for 4 steps with 2 evals
+   (loss and AP50) and both checkpoints; two runs of 3 steps from
+   ``yolo_last.ctd`` with bit-identical losses; the NMS rows
+   (counts equal, boxes within 0.01 px, confidences within 1e-4, classes
+   equal), per-class AP50 (within 1e-3) and eval loss terms (within 1e-3
+   relative) of the card against the CPU's on the same state and val
+   batch; ``augmented_detect`` on the card against the CPU (within 1e-3
+   of 1 + |value|); no launch of K1-K6 across all of it; then the
+   YOLO-trained ``blk_det`` in the deploy tree, served by ``TextDetector``,
+   and its layers 0-9 as the seg trainer's backbone for one step.
 
-Prints ``{"train": {...}}`` (phases 13-14) and ``{"kernels": [...]}`` on
+Prints ``{"train": {...}}`` (phases 13-15) and ``{"kernels": [...]}`` on
 lines of their own (every kernel with its event ``ms`` and its
 ``device_ms`` a launch on the card's clock), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -147,9 +166,12 @@ def fail(msg: str) -> None:
 def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
     """Light page with speech bubbles of glyph-like dark strokes.  With
     ``truth``, also the text mask (uint8 0/255, the strokes left on the
-    page) and each text line's quad (x0, y0, x1, y0, x1, y1, x0, y1 around
-    its remaining strokes): (page, mask, quads).  The draws from ``rng`` are
-    the same either way."""
+    page), each text line's quad (x0, y0, x1, y0, x1, y1, x0, y1 around
+    its remaining strokes) and each bubble's block (cls, x0, y0, x1, y1:
+    the union of its lines' quads, class 1 (ja) for vertical text and 0
+    (eng) for horizontal, bubbles with no stroke left skipped): (page,
+    mask, quads, blocks).  The draws from ``rng`` are the same either
+    way."""
     import numpy as np
 
     yy, xx = np.mgrid[0:h, 0:w]
@@ -158,7 +180,8 @@ def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
     if colour:
         page = page * np.array([0.85, 0.95, 1.0]) + np.array([10.0, 0.0, -15.0])
     lines = []  # the stroke rectangles (y0, y1, x0, x1) of each text line
-    for _ in range(int(rng.integers(4, 8))):
+    owner = []  # (bubble, vertical) of each line
+    for bubble in range(int(rng.integers(4, 8))):
         cy, cx = rng.integers(h // 8, h - h // 8), rng.integers(w // 8, w - w // 8)
         ry, rx = rng.integers(h // 14, h // 6), rng.integers(w // 14, w // 6)
         inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
@@ -184,6 +207,7 @@ def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
                         page[y0 + a:y0 + b + 1, x:x + t] = 25
                         rects.append((y0 + a, y0 + b + 1, x, x + t))
             lines.append(rects)
+            owner.append((bubble, vertical))
     page = np.clip(page, 0, 255).astype(np.uint8)
     if not colour:
         page[..., 1] = page[..., 0]
@@ -192,7 +216,8 @@ def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
         return page
     text = (page == 25).all(axis=2)
     quads = []
-    for rects in lines:
+    blocks = {}  # bubble -> [cls, x0, y0, x1, y1]
+    for rects, (bubble, vertical) in zip(lines, owner):
         if not rects:
             continue
         own = np.zeros_like(text)
@@ -202,7 +227,10 @@ def synthetic_page(rng, h: int, w: int, colour: bool, truth: bool = False):
         if len(ys):
             x0, y0, x1, y1 = int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1
             quads.append([x0, y0, x1, y0, x1, y1, x0, y1])
-    return page, text.astype(np.uint8) * 255, np.array(quads, np.int64).reshape(-1, 8)
+            b = blocks.setdefault(bubble, [int(vertical), x0, y0, x1, y1])
+            b[1:] = [min(b[1], x0), min(b[2], y0), max(b[3], x1), max(b[4], y1)]
+    return (page, text.astype(np.uint8) * 255, np.array(quads, np.int64).reshape(-1, 8),
+            np.array(list(blocks.values()), np.int64).reshape(-1, 5))
 
 
 def serpentine(s: int):
@@ -975,8 +1003,9 @@ def check_k5(dev) -> int:
 
 def write_pages(root: str, rng, n: int) -> str:
     """``n`` seeded synthetic pages written by the port's PNG writer, each
-    with its text mask (``mask-*.png``) and line quads (``line-*.txt``),
-    the layout both trainers' datasets read."""
+    with its text mask (``mask-*.png``), line quads (``line-*.txt``) and
+    YOLO block labels (``p*.txt``: ``cls x y w h`` normalized), the layout
+    the three trainers' datasets read."""
     import numpy as np
 
     from comic_text_detector_tpu_torch.utils.io import imwrite
@@ -985,10 +1014,13 @@ def write_pages(root: str, rng, n: int) -> str:
     sizes = [(768, 544), (704, 512), (832, 576), (640, 448)]
     for i in range(n):
         h, w = sizes[i % len(sizes)]
-        page, mask, quads = synthetic_page(rng, h, w, colour=i % 3 == 1, truth=True)
+        page, mask, quads, blocks = synthetic_page(rng, h, w, colour=i % 3 == 1, truth=True)
         imwrite(os.path.join(root, f"p{i:02d}.png"), page)
         imwrite(os.path.join(root, f"mask-p{i:02d}.png"), mask)
         np.savetxt(os.path.join(root, f"line-p{i:02d}.txt"), quads, fmt="%d")
+        cls, x0, y0, x1, y1 = blocks.T.astype(np.float64)
+        yolo = np.stack([cls, (x0 + x1) / 2 / w, (y0 + y1) / 2 / h, (x1 - x0) / w, (y1 - y0) / h], axis=1)
+        np.savetxt(os.path.join(root, f"p{i:02d}.txt"), yolo, fmt=["%d"] + ["%.6f"] * 4)
     return root
 
 
@@ -1028,29 +1060,37 @@ def step_kernels(fn, reps: int) -> dict:
 
 def train_phase(name: str, card: str, smi: str, trainer, make_state, loader, to_step, step, run_trainer,
                 ckpt: str):
-    """The checks both trainers share, on the card at imgsz 512, batch 8:
-    one step against the same step on the CPU, 20 steps on a fixed batch
-    (a finite loss that falls; ms a step, peak memory), the trainer's own
-    ``train`` (its checkpoint written), and two runs of the next 3 steps
-    from that checkpoint (bit-identical losses)."""
+    """The checks the trainers share, on the card at imgsz 512, batch 8:
+    one step against the same step on the CPU (each loss term within 1e-4
+    relative, gradients within 1e-3 in relative L2),
+    20 steps on a fixed batch (a finite loss that falls; ms a step, peak
+    memory), the trainer's own ``train`` (its checkpoint written), and two
+    runs of the next 3 steps from that checkpoint (bit-identical losses).
+    ``step`` returns the loss or a dict of loss terms with ``loss``."""
     import numpy as np
     import torch
 
     from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
+
+    def terms(out) -> dict:
+        return {k: v.detach() for k, v in out.items()} if isinstance(out, dict) else {"loss": out.detach()}
 
     batches = list(loader)
     fixed = batches[0]
     on = {d: to_step(fixed, d) for d in ("cpu", card)}
     states = {d: make_state(d) for d in ("cpu", card)}
     t0 = time.perf_counter()
-    losses = {d: float(step(states[d], on[d])) for d in ("cpu", card)}
+    outs = {d: {k: float(v) for k, v in terms(step(states[d], on[d])).items()} for d in ("cpu", card)}
     cpu_s = time.perf_counter() - t0
-    rel = abs(losses[card] - losses["cpu"]) / abs(losses["cpu"])
+    rels = {k: abs(outs[card][k] - v) / max(abs(v), 1e-30) for k, v in outs["cpu"].items()}
+    rel = max(rels.values())
+    losses = {d: outs[d]["loss"] for d in outs}
     l2, worst = grad_gap(states[card].model, states["cpu"].model)
-    phase(f"  {name}: one step, card {losses[card]:.7f} / CPU {losses['cpu']:.7f} (loss rel {rel:.2e}), "
-          f"gradients rel L2 {l2:.2e}, worst leaf {worst:.2e} of its max-abs ({cpu_s:.1f} s with the CPU's)")
+    phase(f"  {name}: one step, card {losses[card]:.7f} / CPU {losses['cpu']:.7f} (rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + f"), gradients rel L2 {l2:.2e}, worst leaf {worst:.2e} of its max-abs ({cpu_s:.1f} s with the CPU's)")
     if not rel <= 1e-4:
-        raise AssertionError(f"{name}: card and CPU losses differ by {rel:.2e} relative (limit 1e-4)")
+        raise AssertionError(f"{name}: card and CPU loss terms differ by {rels} relative (limit 1e-4)")
     if not l2 <= 1e-3:
         raise AssertionError(f"{name}: card and CPU gradients differ by {l2:.2e} in relative L2 (limit 1e-3)")
     del states
@@ -1064,7 +1104,7 @@ def train_phase(name: str, card: str, smi: str, trainer, make_state, loader, to_
         if i == 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        seq.append(step(state, on[card]))
+        seq.append(terms(step(state, on[card]))["loss"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / 18
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30  # the model, optimizer and steps
@@ -1075,9 +1115,11 @@ def train_phase(name: str, card: str, smi: str, trainer, make_state, loader, to_
         raise AssertionError(f"{name}: the loss on a fixed batch did not fall: {seq}")
     by_kernel = step_kernels(lambda: step(state, on[card]), 3)
     busy = sum(v[0] for v in by_kernel.values())
+    launches = sum(v[1] for v in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
-    phase(f"  {name}: device busy {busy:.2f} ms a step (CUPTI), idle share {1 - busy / ms:.3f}; top kernels (ms, "
-          "launches a step): " + ", ".join(f"{k[:60]} {v[0]:.2f} x{v[1]:g}" for k, v in top) + f"; {smi}")
+    phase(f"  {name}: device busy {busy:.2f} ms a step (CUPTI) in {launches:g} kernel launches, idle share "
+          f"{1 - busy / ms:.3f}; top kernels (ms, launches a step): "
+          + ", ".join(f"{k[:60]} {v[0]:.2f} x{v[1]:g}" for k, v in top) + f"; {smi}")
     # the cost of bit-for-bit steps: the same steps with cuDNN free to pick
     # non-deterministic algorithms (TF32 still off); a measurement only
     from comic_text_detector_tpu_torch.training import steps as steps_mod
@@ -1109,22 +1151,271 @@ def train_phase(name: str, card: str, smi: str, trainer, make_state, loader, to_
     runs = []
     for _ in range(2):
         st = ckpt_lib.restore(ckpt, make_state(card))["state"]
-        runs.append(torch.stack([step(st, to_step(b, card)).detach() for b in batches[:3]]).cpu())
+        runs.append(torch.stack([terms(step(st, to_step(b, card)))["loss"] for b in batches[:3]]).cpu())
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: two runs from {os.path.basename(ckpt)} differ: {runs}")
     phase(f"  {name}: 3 steps from {os.path.basename(ckpt)}, twice: bit-identical losses {runs[0].tolist()}")
     return out, {"ms_a_step": ms, "steps_per_s": 1e3 / ms, "peak_gib": peak, "loss_20_steps": [seq[0], seq[-1]],
-                 "busy_ms_a_step": busy, "idle_share": 1 - busy / ms, "ms_a_step_nondeterministic": ms_free,
+                 "busy_ms_a_step": busy, "idle_share": 1 - busy / ms, "kernel_launches_a_step": launches,
+                 "ms_a_step_nondeterministic": ms_free,
                  "top_kernels": {k[:80]: v for k, v in top},
-                 "card_vs_cpu_loss_rel": rel, "card_vs_cpu_grad_rel_l2": l2, "card_vs_cpu_grad_worst_leaf": worst,
+                 "card_vs_cpu_loss_rel": rel, "card_vs_cpu_rel": rels, "card_vs_cpu_grad_rel_l2": l2,
+                 "card_vs_cpu_grad_worst_leaf": worst,
                  "trainer_s": trainer_s, "trainer_steps": out["steps"], "restore_losses": runs[0].tolist()}
 
 
+def colliding_labels():
+    """YOLO labels aimed at the dense target assignment's edges: a pair of
+    equal boxes of other classes (their candidates collide on every cell
+    and anchor), an overlapping box, centres at the corners, within one
+    cell of a border and on cell borders, a zero-size box and masked
+    boxes; two pages, the second in reverse order."""
+    import numpy as np
+
+    rows = [[0, 0.40, 0.40, 0.20, 0.20], [1, 0.40, 0.40, 0.20, 0.20], [1, 0.43, 0.41, 0.19, 0.22],
+            [0, 0.01, 0.02, 0.10, 0.08], [1, 0.99, 0.985, 0.12, 0.30], [0, 1.0 / 64, 0.5, 0.2, 0.2],
+            [1, 0.5, 63.0 / 64, 0.2, 0.2], [0, 0.5, 0.5, 0.0, 0.3], [1, 0.3, 0.7, 0.3, 0.2], [0, 0.3, 0.7, 0.3, 0.2],
+            [1, 0.96875, 0.03125, 0.6, 0.9], [0, 0.5, 0.5, 0.95, 0.95], [1, 0.125, 0.25, 0.02, 0.03]]
+    labels = np.asarray([rows, rows[::-1]], np.float32)
+    mask = np.ones(labels.shape[:2], bool)
+    mask[0, 8:10] = False
+    mask[1, 3:5] = False
+    return labels, mask
+
+
+def yolo_phase(dev, smi: str, counters: dict, work: str, train_dir: str, val_dir: str, deploy: dict,
+               imgsz: int, bs: int) -> dict:
+    """Phase 15: the YOLO block trainer on the card (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.data import blk_dataset, seg_dataset
+    from comic_text_detector_tpu_torch.models.yolo import augmented_detect
+    from comic_text_detector_tpu_torch.pipeline import TextDetector
+    from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
+    from comic_text_detector_tpu_torch.training import seg_trainer, yolo_trainer
+    from comic_text_detector_tpu_torch.training.steps import (
+        Optimizer, create_seg_train_state, create_yolo_train_state, seg_train_step, yolo_eval_step, yolo_train_step,
+    )
+    from comic_text_detector_tpu_torch.training.yolo_loss import _level_targets, yolo_loss
+    from comic_text_detector_tpu_torch.weights import (
+        blk_train_from_deploy, deploy_from_train, train_from_deploy, variables_from_state_dict,
+    )
+
+    card = str(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    yolo_vars = blk_train_from_deploy(deploy)
+    hyp = {"data": {"train_img_dir": train_dir, "val_img_dir": val_dir, "imgsz": imgsz, "augment": True,
+                    "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1}, "save_dir": work},
+           "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam", "momentum": 0.9,
+                     "weight_decay": 0.0, "eval_interval": 1, "warmup_steps": 2}}
+
+    # the dense targets of colliding labels: the card's equal to the CPU's,
+    # and bit-identical over 20 repeats
+    labels, mask = colliding_labels()
+    spec = yolo_trainer.build_model(yolo_vars).spec
+    n_pos = []
+    for a, s in zip(spec.anchors, spec.strides):
+        ag = torch.tensor(a, dtype=torch.float32).view(-1, 2) / s
+        g = imgsz // s
+        ref = _level_targets(torch.from_numpy(labels), torch.from_numpy(mask), ag, g, g)
+        args = (torch.from_numpy(labels).to(dev), torch.from_numpy(mask).to(dev), ag.to(dev), g, g)
+        first = _level_targets(*args)
+        if not torch.equal(first.cpu(), ref):
+            raise AssertionError(f"dense targets at {g}x{g} differ between the card and the CPU")
+        for _ in range(20):
+            if not torch.equal(_level_targets(*args), first):
+                raise AssertionError(f"dense targets at {g}x{g} differ between repeats on the card")
+        n_pos.append(int(ref[..., 5].sum()))
+    phase(f"  YOLO dense targets of colliding labels at {imgsz // 8}, {imgsz // 16}, {imgsz // 32}: the card's equal "
+          f"to the CPU's and bit-identical over 20 repeats ({n_pos} positives)")
+
+    def yolo_state(d):
+        model = yolo_trainer.build_model(yolo_vars).to(d)
+        return create_yolo_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.9))
+
+    def yolo_batch(b, d):
+        return tuple(torch.from_numpy(x).to(d) for x in b)
+
+    _, loader = blk_dataset.create_dataloader(train_dir, imgsz, bs, as_uint8=True, shuffle=False)
+    out, res = train_phase(
+        "YOLO", card, smi, yolo_trainer, yolo_state, loader, yolo_batch, lambda st, b: yolo_train_step(st, *b),
+        lambda: yolo_trainer.train(hyp, variables=yolo_vars, device=card), os.path.join(work, "yolo_last.ctd"))
+    # where a step's time goes: forward, loss, backward and update, each
+    # cumulative stage timed to a synchronize, with its device time and
+    # kernel launches (CUPTI)
+    st = yolo_state(card)
+    st.model.train()
+    imgs, labels, mask = yolo_batch(next(iter(loader)), card)
+    x = (imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous()  # the step's own input (steps._as_float_img)
+    spec = st.model.spec
+
+    def loss_of(state, inp):
+        return yolo_loss(state.model(inp, decode=False)[0], labels, mask, spec.anchors, spec.strides, spec.nc)["loss"]
+
+    def backward():
+        st.optimizer.zero_grad()
+        loss_of(st, x).backward()
+
+    def timed(fn) -> float:
+        for i in range(12):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 10
+
+    stages = {"forward": lambda: st.model(x, decode=False), "+ loss": lambda: loss_of(st, x), "+ backward": backward,
+              "+ update (the step)": lambda: yolo_train_step(st, imgs, labels, mask)}
+    stage_ms, stage_busy, stage_launches = {}, {}, {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        for k, fn in stages.items():
+            stage_ms[k] = timed(fn)
+            by_kernel = step_kernels(fn, 2)
+            stage_launches[k] = sum(v[1] for v in by_kernel.values())
+            stage_busy[k] = sum(v[0] for v in by_kernel.values())
+    phase("  YOLO step by cumulative stage, ms to a synchronize / device busy ms (kernel launches): " + ", ".join(
+        f"{k} {stage_ms[k]:.2f} / {stage_busy[k]:.2f} ({stage_launches[k]:g})" for k in stages) + f"; {smi}")
+
+    # a measurement only: the same step with the model and its input in
+    # channels-last memory (cuDNN's NHWC kernels), from the same state
+    first = float(yolo_train_step(yolo_state(card), imgs, labels, mask)["loss"])
+    cl = yolo_state(card)
+    cl.model.to(memory_format=torch.channels_last).train()
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+
+    def cl_step():
+        cl.optimizer.zero_grad()
+        loss = loss_of(cl, x_cl)
+        loss.backward()
+        cl.optimizer.step()
+        return loss
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        cl_first = float(cl_step())
+        cl_ms = timed(cl_step)
+        cl_kernels = step_kernels(cl_step, 2)
+    cl_busy = sum(v[0] for v in cl_kernels.values())
+    cl_top = sorted(cl_kernels.items(), key=lambda kv: -kv[1][0])[:3]
+    phase(f"  YOLO step in channels-last memory: {cl_ms:.2f} ms a step, busy {cl_busy:.2f} ms; first loss "
+          f"{cl_first:.7f} against {first:.7f}; top kernels: "
+          + ", ".join(f"{k[:60]} {v[0]:.2f} x{v[1]:g}" for k, v in cl_top) + f"; {smi}")
+    res.update(stage_ms=stage_ms, stage_busy_ms=stage_busy, stage_launches=stage_launches,
+               channels_last_ms=cl_ms, channels_last_busy_ms=cl_busy, channels_last_first_loss=[cl_first, first])
+    del st, cl
+
+    best = os.path.join(work, "yolo_best.ctd")
+    if not os.path.exists(best) or out["ap"] is None or not np.isfinite(out["best_loss"]):
+        raise AssertionError(f"yolo_trainer.train wrote no {best} or no AP50: {out['best_loss']}, {out['ap']}")
+    meta = json.load(open(os.path.join(work, "yolo_last.ctd.meta.json")))
+    phase(f"  YOLO trainer: best_loss {out['best_loss']:.5f} (yolo_last meta {meta['best_loss']:.5f}), AP50 "
+          f"{out['ap']['ap50'].round(4).tolist()} mAP50 {out['ap']['map50']:.4f} over {out['ap']['n_gt'].tolist()} "
+          "blocks (eng, ja)")
+
+    # the evals on the card against the CPU on the same state and val pages
+    _, val_loader = blk_dataset.create_dataloader(val_dir, imgsz, min(4, bs), augment=False, shuffle=False,
+                                                  as_uint8=True)
+    vb = next(iter(val_loader))
+    states = {d: yolo_state(d) for d in ("cpu", card)}
+    rows = {d: yolo_trainer.detect_batch(states[d], torch.from_numpy(vb[0]).to(d)) for d in ("cpu", card)}
+    (rc, cc), (rg, cg) = rows["cpu"], [t.cpu() for t in rows[card]]
+    if not torch.equal(cc, cg) or int(cc.sum()) == 0:
+        raise AssertionError(f"NMS counts differ between the card and the CPU (or are all 0): {cg} / {cc}")
+    box_gap = max(float((rg[b, :n, :4] - rc[b, :n, :4]).abs().max()) for b, n in enumerate(cc.tolist()) if n)
+    conf_gap = max(float((rg[b, :n, 4] - rc[b, :n, 4]).abs().max()) for b, n in enumerate(cc.tolist()) if n)
+    if box_gap > 1e-2 or conf_gap > 1e-4 or not torch.equal(rg[..., 5], rc[..., 5]):
+        raise AssertionError(f"NMS rows differ between the card and the CPU: boxes {box_gap}, conf {conf_gap}")
+    aps = {d: yolo_trainer.eval_detection_ap(states[d], val_loader) for d in ("cpu", card)}
+    ap_gap = float(np.abs(aps[card]["ap50"] - aps["cpu"]["ap50"]).max())
+    if ap_gap > 1e-3 or not np.array_equal(aps[card]["n_gt"], aps["cpu"]["n_gt"]):
+        raise AssertionError(f"AP50 differs between the card and the CPU: {aps}")
+    evs = {d: yolo_eval_step(states[d], *(torch.from_numpy(x).to(d) for x in vb)) for d in ("cpu", card)}
+    ev_rel = max(abs(float(evs[card][k]) - float(v)) / max(abs(float(v)), 1e-30) for k, v in evs["cpu"].items())
+    if ev_rel > 1e-3:
+        raise AssertionError(f"the eval loss terms differ between the card and the CPU: {evs}")
+    phase(f"  YOLO eval, card vs CPU on {len(vb[0])} val pages: NMS counts {cg.tolist()} equal, boxes within "
+          f"{box_gap:.2e} px, confidences {conf_gap:.2e}; AP50 {aps[card]['ap50'].round(4).tolist()} (CPU "
+          f"{aps['cpu']['ap50'].round(4).tolist()}, gap {ap_gap:.1e}); eval loss terms within {ev_rel:.1e} relative")
+    # the evals' own time, the val batches loaded first
+    val = list(val_loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ap_card = yolo_trainer.eval_detection_ap(states[card], val)
+    eval_ap_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for b in val:
+        float(yolo_eval_step(states[card], *(torch.from_numpy(x).to(dev) for x in b))["loss"])
+    eval_loss_ms = (time.perf_counter() - t0) * 1e3
+    phase(f"  YOLO evals on {len(val) * min(4, bs)} val pages (loaded first): loss {eval_loss_ms:.1f} ms, AP50 "
+          f"(decode, NMS, matching) {eval_ap_ms:.1f} ms, mAP50 {ap_card['map50']:.4f}; {smi}")
+
+    # test-time augmentation: the card against the CPU on one batch
+    x = torch.from_numpy(vb[0]).permute(0, 3, 1, 2).float() / 255.0
+    tta = {}
+    for d in ("cpu", card):
+        states[d].model.eval()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            tta[d] = augmented_detect(states[d].model.blk_det, x.to(d)).cpu()
+    tta_gap = float(((tta[card] - tta["cpu"]).abs() / (1.0 + tta["cpu"].abs())).max())
+    if tta["cpu"].shape != tta[card].shape or not tta_gap <= 1e-3:
+        raise AssertionError(f"augmented_detect differs between the card and the CPU: {tta_gap}")
+    phase(f"  augmented_detect on {tuple(x.shape)}: {tuple(tta[card].shape)} rows, card vs CPU within {tta_gap:.2e} "
+          "(absolute over 1 + |CPU value|)")
+    del states
+
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"a hand-written kernel launched during the YOLO steps: {launched}")
+    phase("  launches of K1-K6 across the YOLO steps, evals and test-time augmentation: none (no TPU kernel lies "
+          "on this path)")
+
+    # the flagship chain: the YOLO-trained blk_det into the deploy tree,
+    # served by TextDetector, and its layers 0-9 as the seg trainer's backbone
+    trained = variables_from_state_dict(out["state"].model.state_dict())
+    tree = deploy_from_train(trained, deploy)
+    path = os.path.join(work, "yolo_trained.npz")
+    ckpt_lib.save_compact(path, tree)
+    page = synthetic_page(np.random.default_rng(15), 1400, 1000, colour=False)
+    mask_, mask_ref, blks = TextDetector(path, input_size=1024, device=card)(page)
+    if mask_.shape != (1400, 1000) or mask_ref.shape != (1400, 1000):
+        raise AssertionError(f"TextDetector on the YOLO-trained checkpoint gave masks of {mask_.shape}")
+    seg_vars = train_from_deploy(tree)
+
+    def same_tree(a, b) -> bool:
+        if isinstance(a, dict):
+            return isinstance(b, dict) and a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+        return np.array_equal(a, b)
+
+    for col in ("params", "batch_stats"):
+        layers = seg_vars[col]["backbone"]
+        if sorted(layers, key=lambda k: int(k.split("_")[1]))[-1] != "model_9" or not all(
+                same_tree(v, trained[col]["blk_det"][k]) for k, v in layers.items()):
+            raise AssertionError(f"the seg backbone's {col} are not the YOLO-trained layers 0-9")
+    model = seg_trainer.build_model(seg_vars, "leaky", with_db=False).to(dev)
+    st = create_seg_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.9))
+    imgs, masks = next(iter(seg_dataset.create_dataloader(train_dir, "", imgsz, bs, as_uint8=True)[1]))
+    seg_loss = float(seg_train_step(st, torch.from_numpy(imgs).to(dev), torch.from_numpy(masks).to(dev))["loss"])
+    if not np.isfinite(seg_loss):
+        raise AssertionError(f"the seg step on the YOLO-trained backbone gave {seg_loss}")
+    phase(f"  the YOLO-trained blk_det in the deploy tree served a page through TextDetector ({len(blks)} blocks, "
+          f"mask>30 {(mask_ > 30).mean():.4f}); its layers 0-9 as the seg trainer's backbone: one step, loss "
+          f"{seg_loss:.5f}")
+    res.update(eval_loss_ms=eval_loss_ms, eval_ap_ms=eval_ap_ms, ap50=aps[card]["ap50"].tolist(),
+               map50=aps[card]["map50"], ap50_cpu=aps["cpu"]["ap50"].tolist(), n_gt=aps[card]["n_gt"].tolist(),
+               nms_box_gap_px=box_gap, nms_conf_gap=conf_gap, eval_rel=ev_rel, tta_gap=tta_gap,
+               target_positives=n_pos, trainer_best_loss=out["best_loss"],
+               trainer_ap50=out["ap"]["ap50"].tolist(), handoff_blocks=len(blks), handoff_seg_loss=seg_loss)
+    return res
+
+
 def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -> dict:
-    """Phases 13-14: the seg and DB trainers on the card, imgsz 512, batch 8
-    (scripts/train_flagship.py's configuration), from the flagship weights
-    carried into the train trees, on 2 x ``bs`` train and ``bs`` val seeded
-    synthetic pages."""
+    """Phases 13-15: the seg, DB and YOLO trainers on the card, imgsz 512,
+    batch 8 (scripts/train_flagship.py's configuration), from the flagship
+    weights carried into the train trees, on 2 x ``bs`` train and ``bs``
+    val seeded synthetic pages."""
     import shutil
     import tempfile
 
@@ -1163,7 +1454,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
                 "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
         results = {}
 
-        phase(f"13/14 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        phase(f"13/15 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
         hyp_seg = {"data": data, "model": {"act": "leaky"},
                    "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
                              "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
@@ -1200,7 +1491,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
         unet_vars = variables_from_state_dict(st.model.state_dict())
         del st, seg_out
 
-        phase(f"14/14 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        phase(f"14/15 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
         db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
         hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
                   "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
@@ -1296,6 +1587,11 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
             raise AssertionError(f"TextDetector on the trained checkpoint gave masks of {mask.shape}")
         phase(f"  the trained deploy tree, saved compact and loaded by TextDetector, served a page: "
               f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
+        del st, db_out
+
+        phase(f"15/15 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
+              "in train mode, flagship_r2's blk_det")
+        results["yolo"] = yolo_phase(dev, smi, counters, work, train_dir, val_dir, deploy, imgsz, bs)
         return results
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1316,7 +1612,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/14 device")
+    phase("1/15 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1327,13 +1623,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/14 build kernels (nvcc, one per source, in parallel)")
+    phase("2/15 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/14 kernels vs plain versions, bit for bit")
+    phase("3/15 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -1404,7 +1700,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/14 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/15 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -1584,7 +1880,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/14 output check: card vs the port's CPU route")
+    phase("5/15 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -1622,7 +1918,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/14 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/15 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -1671,7 +1967,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/14 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/15 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -1692,7 +1988,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/14 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/15 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -1834,7 +2130,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/14 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/15 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -1865,10 +2161,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/14 K5 vs its plain version, bit for bit")
+    phase("10/15 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/14 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/15 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1946,7 +2242,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/14 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/15 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ``models/detector.py``.  ``TextDetBase``
 (reference basemodel.py:222-244): YOLO graph (detections + backbone taps)
 -> U-Net head (mask + intermediate features) -> DB head (shrink/thresh
 maps).  ``TextDetTrain`` (basemodel.py:162-209): the backbone frozen in
-eval mode, one trainable head.
+eval mode, one trainable head.  ``BlkDetTrain``: the whole YOLO graph,
+trained as the block detector.
 """
 
 from __future__ import annotations
@@ -106,6 +107,28 @@ class TextDetTrain(nn.Module):
 def build_train_model(cfg: Optional[dict] = None, act: str = "leaky", with_db: bool = False,
                       freeze_backbone: bool = True) -> TextDetTrain:
     return TextDetTrain(backbone_spec(cfg), act=act, with_db=with_db, freeze_backbone=freeze_backbone)
+
+
+class BlkDetTrain(nn.Module):
+    """Train-time block detector: the full YOLO graph (backbone, neck and
+    Detect, SiLU) under the deploy name ``blk_det``, so its state dict keys
+    are the inference net's and trained weights go straight into a deploy
+    tree.  Trained whole: in ``train()`` every BatchNorm normalizes with
+    its batch statistics and updates its running ones.  ``forward``
+    returns ``(raw, taps)``: the raw per-level (B, na, h, w, no) maps the
+    loss reads, or with ``decode=True`` the decoded (B, N, no) rows."""
+
+    def __init__(self, spec: GraphSpec):
+        super().__init__()
+        self.spec = spec
+        self.blk_det = YoloGraph(spec, OUT_INDICES, act="silu")
+
+    def forward(self, x: torch.Tensor, decode: bool = False):
+        return self.blk_det(x, decode=decode)
+
+
+def build_blk_train_model(cfg: Optional[dict] = None) -> BlkDetTrain:
+    return BlkDetTrain(full_spec(cfg))
 
 
 def init_variables(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:

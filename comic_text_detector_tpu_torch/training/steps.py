@@ -1,8 +1,10 @@
-"""Train and eval steps of the two head trainers, and their optimizer.
+"""Train and eval steps of the trainers, and their optimizer.
 
 Counterpart of the JAX package's ``training/steps.py`` (reference
-basemodel.py:162-209, train_seg.py:120-153, train_db.py:130-166): frozen
-backbone, one trainable head, dice / DB losses.  Where the JAX package
+basemodel.py:162-209, train_seg.py:120-153, train_db.py:130-166): for the
+head trainers a frozen backbone, one trainable head, dice / DB losses; for
+the block detector the whole YOLO graph in train mode under the v5 loss
+(``training/yolo_loss.py``).  Where the JAX package
 builds jitted step functions, the port's steps are plain functions over a
 :class:`TrainState`; images arrive as (B, H, W, 3) uint8 (or float) NHWC
 batches and are cast and scaled on their device.
@@ -33,9 +35,11 @@ import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
 
-from comic_text_detector_tpu_torch.models.detector import TextDetTrain
+from comic_text_detector_tpu_torch.models.detector import BlkDetTrain, TextDetTrain
 from comic_text_detector_tpu_torch.training import losses
+from comic_text_detector_tpu_torch.training.yolo_loss import yolo_loss
 
 Schedule = Callable[[int], float]
 
@@ -128,7 +132,7 @@ class TrainState:
     ``trainable``, and the frozen rest), the optimizer over the trainable
     parameters, and the count of train steps taken."""
 
-    model: TextDetTrain
+    model: nn.Module  # TextDetTrain or BlkDetTrain
     trainable: Tuple[str, ...]
     optimizer: Optimizer
     step: int = 0
@@ -145,7 +149,7 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def _create_state(model: TextDetTrain, tx: Callable, trainable: Sequence[str]) -> TrainState:
+def _create_state(model: nn.Module, tx: Callable, trainable: Sequence[str]) -> TrainState:
     params = []
     for name, sub in model.named_children():
         sub.requires_grad_(name in trainable)
@@ -166,6 +170,11 @@ def create_db_train_state(model: TextDetTrain, tx: Callable) -> TrainState:
     if not model.with_db:
         raise ValueError("DB training needs build_train_model(with_db=True)")
     return _create_state(model, tx, ("dbnet",))
+
+
+def create_yolo_train_state(model: BlkDetTrain, tx: Callable) -> TrainState:
+    """Whole-graph detection training: backbone, neck and Detect."""
+    return _create_state(model, tx, ("blk_det",))
 
 
 def _as_float_img(x: torch.Tensor) -> torch.Tensor:
@@ -230,3 +239,44 @@ def db_eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
     state.model.eval()
     with _cudnn():
         return state.model(_as_float_img(imgs))
+
+
+def _yolo_loss(model: BlkDetTrain, raw, labels: torch.Tensor, label_mask: torch.Tensor,
+               gains: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    g = gains or {}
+    spec = model.spec
+    return yolo_loss(raw, labels, label_mask, spec.anchors, spec.strides, spec.nc, box_gain=g.get("box", 0.05),
+                     obj_gain=g.get("obj", 1.0), cls_gain=g.get("cls", 0.3))
+
+
+def yolo_train_step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor, label_mask: torch.Tensor,
+                    gains: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """Detection training step: the v5 loss over the raw Detect maps of the
+    whole graph in train mode, with dense target assignment on the device.
+    ``imgs`` (B, H, W, 3), ``labels`` (B, L, 5) [cls, x, y, w, h]
+    normalized, ``label_mask`` (B, L); ``gains`` {'box', 'obj', 'cls'}
+    (defaults 0.05, 1.0, 0.3).  Returns the loss terms as device scalars."""
+    state.model.train()
+    with _cudnn():
+        raw, _ = state.model(_as_float_img(imgs), decode=False)
+        metrics = _yolo_loss(state.model, raw, labels, label_mask, gains)
+        _update(state, metrics["loss"])
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def yolo_decode_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
+    """-> (B, N, 5 + nc) decoded Detect rows (eval mode)."""
+    state.model.eval()
+    with _cudnn():
+        return state.model(_as_float_img(imgs), decode=True)[0]
+
+
+@torch.no_grad()
+def yolo_eval_step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor, label_mask: torch.Tensor,
+                   gains: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """The same loss terms in eval mode (running BatchNorm statistics)."""
+    state.model.eval()
+    with _cudnn():
+        raw, _ = state.model(_as_float_img(imgs), decode=False)
+        return _yolo_loss(state.model, raw, labels, label_mask, gains)

@@ -13,8 +13,9 @@
   whose keys already have the port's layout.
 * The train trees: :func:`train_state_dict_from_jax` /
   :func:`variables_from_state_dict` carry the JAX ``TextDetTrain``
-  variables (``backbone``, ``seg_net``, ``dbnet``) to the port's
-  ``TextDetTrain`` state dict and back; :func:`train_from_deploy` and
+  variables (``backbone``, ``seg_net``, ``dbnet``) and ``BlkDetTrain``
+  variables (``blk_det``) to the port's state dicts and back;
+  :func:`train_from_deploy`, :func:`blk_train_from_deploy` and
   :func:`deploy_from_train` move weights between a deploy tree
   (``blk_det``, ``text_seg``, ``text_det``) and a train tree.
 """
@@ -131,15 +132,19 @@ def _anchors_key(spec) -> Tuple[str, torch.Tensor]:
     return f"blk_det.model.{detect_idx}.anchors", anchors / strides
 
 
-def train_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``TextDetTrain`` variables (nested numpy dict with ``backbone``,
-    ``seg_net`` and, for DB training, ``dbnet``) -> the port's
-    ``TextDetTrain`` state dict."""
+def train_state_dict_from_jax(variables: Mapping[str, Any], cfg: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """JAX train variables (nested numpy dict) -> the port's state dict:
+    ``TextDetTrain``'s from ``backbone``, ``seg_net`` and, for DB training,
+    ``dbnet``; ``BlkDetTrain``'s from ``blk_det`` (with Detect's anchors
+    buffer from ``cfg``'s graph)."""
     out: Dict[str, torch.Tensor] = {}
     stats = variables.get("batch_stats", {})
     for subnet, params in variables["params"].items():
         for k, v in _subnet_state_dict(params, stats.get(subnet, {})).items():
             out[f"{subnet}.{k}"] = torch.from_numpy(np.ascontiguousarray(v))
+    if "blk_det" in variables["params"]:
+        key, anchors = _anchors_key(parse_graph(cfg or YOLOV5S_CFG))
+        out[key] = anchors
     return out
 
 
@@ -240,14 +245,23 @@ def train_from_deploy(deploy: Mapping[str, Any], with_db: bool = False) -> Dict:
     return out
 
 
+def blk_train_from_deploy(deploy: Mapping[str, Any]) -> Dict:
+    """Deploy variables -> JAX-layout ``BlkDetTrain`` variables: the whole
+    ``blk_det`` graph."""
+    return {col: {"blk_det": _subtree(deploy[col]["blk_det"])} for col in ("params", "batch_stats")}
+
+
 def deploy_from_train(train: Mapping[str, Any], deploy: Mapping[str, Any]) -> Dict:
-    """A deploy tree with trained heads: a copy of ``deploy`` whose
-    ``text_seg`` layers are replaced by ``train``'s ``seg_net`` ones (the
-    trunk alone after DB training) and whose ``text_det`` is ``train``'s
-    ``dbnet`` where it has one.  The backbone stays ``deploy``'s: the
-    trainers keep it frozen."""
+    """A deploy tree with trained parts: a copy of ``deploy`` whose
+    ``blk_det`` is ``train``'s where it has one (the block trainer's tree),
+    whose ``text_seg`` layers are replaced by ``train``'s ``seg_net`` ones
+    (the trunk alone after DB training) and whose ``text_det`` is
+    ``train``'s ``dbnet`` where it has one.  A head trainer's backbone is
+    not carried back: those trainers keep it frozen."""
     out = copy.deepcopy(dict(deploy))
     for col in ("params", "batch_stats"):
+        if "blk_det" in train[col]:
+            out[col]["blk_det"] = _subtree(train[col]["blk_det"])
         out[col]["text_seg"].update(_subtree(train[col].get("seg_net", {})))
         if "dbnet" in train[col]:
             out[col]["text_det"] = _subtree(train[col]["dbnet"])

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
                    "ops.db_decode", "ops.geometry", "ops.nms", "ops.cc_kernels", "ops.finalize",
                    "training.losses", "training.init", "training.steps", "training.checkpoint",
                    "training.metrics", "training.seg_trainer", "training.db_trainer", "data.augment",
-                   "data.maps", "data.seg_dataset", "data.db_dataset", "utils.io", "utils.log"):
+                   "data.maps", "data.seg_dataset", "data.db_dataset", "utils.io", "utils.log",
+                   "training.yolo_loss", "training.yolo_trainer", "data.blk_dataset"):
         assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
 
