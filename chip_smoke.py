@@ -1198,7 +1198,7 @@ def yolo_phase(dev, smi: str, counters: dict, work: str, train_dir: str, val_dir
     from comic_text_detector_tpu_torch.training.steps import (
         Optimizer, create_seg_train_state, create_yolo_train_state, seg_train_step, yolo_eval_step, yolo_train_step,
     )
-    from comic_text_detector_tpu_torch.training.yolo_loss import _level_targets, yolo_loss
+    from comic_text_detector_tpu_torch.training.yolo_loss import _level_targets
     from comic_text_detector_tpu_torch.weights import (
         blk_train_from_deploy, deploy_from_train, train_from_deploy, variables_from_state_dict,
     )
@@ -1243,69 +1243,6 @@ def yolo_phase(dev, smi: str, counters: dict, work: str, train_dir: str, val_dir
     out, res = train_phase(
         "YOLO", card, smi, yolo_trainer, yolo_state, loader, yolo_batch, lambda st, b: yolo_train_step(st, *b),
         lambda: yolo_trainer.train(hyp, variables=yolo_vars, device=card), os.path.join(work, "yolo_last.ctd"))
-    # where a step's time goes: forward, loss, backward and update, each
-    # cumulative stage timed to a synchronize, with its device time and
-    # kernel launches (CUPTI)
-    st = yolo_state(card)
-    st.model.train()
-    imgs, labels, mask = yolo_batch(next(iter(loader)), card)
-    x = (imgs.permute(0, 3, 1, 2).float() / 255.0).contiguous()  # the step's own input (steps._as_float_img)
-    spec = st.model.spec
-
-    def loss_of(state, inp):
-        return yolo_loss(state.model(inp, decode=False)[0], labels, mask, spec.anchors, spec.strides, spec.nc)["loss"]
-
-    def backward():
-        st.optimizer.zero_grad()
-        loss_of(st, x).backward()
-
-    def timed(fn) -> float:
-        for i in range(12):
-            if i == 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / 10
-
-    stages = {"forward": lambda: st.model(x, decode=False), "+ loss": lambda: loss_of(st, x), "+ backward": backward,
-              "+ update (the step)": lambda: yolo_train_step(st, imgs, labels, mask)}
-    stage_ms, stage_busy, stage_launches = {}, {}, {}
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        for k, fn in stages.items():
-            stage_ms[k] = timed(fn)
-            by_kernel = step_kernels(fn, 2)
-            stage_launches[k] = sum(v[1] for v in by_kernel.values())
-            stage_busy[k] = sum(v[0] for v in by_kernel.values())
-    phase("  YOLO step by cumulative stage, ms to a synchronize / device busy ms (kernel launches): " + ", ".join(
-        f"{k} {stage_ms[k]:.2f} / {stage_busy[k]:.2f} ({stage_launches[k]:g})" for k in stages) + f"; {smi}")
-
-    # a measurement only: the same step with the model and its input in
-    # channels-last memory (cuDNN's NHWC kernels), from the same state
-    first = float(yolo_train_step(yolo_state(card), imgs, labels, mask)["loss"])
-    cl = yolo_state(card)
-    cl.model.to(memory_format=torch.channels_last).train()
-    x_cl = x.contiguous(memory_format=torch.channels_last)
-
-    def cl_step():
-        cl.optimizer.zero_grad()
-        loss = loss_of(cl, x_cl)
-        loss.backward()
-        cl.optimizer.step()
-        return loss
-
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-        cl_first = float(cl_step())
-        cl_ms = timed(cl_step)
-        cl_kernels = step_kernels(cl_step, 2)
-    cl_busy = sum(v[0] for v in cl_kernels.values())
-    cl_top = sorted(cl_kernels.items(), key=lambda kv: -kv[1][0])[:3]
-    phase(f"  YOLO step in channels-last memory: {cl_ms:.2f} ms a step, busy {cl_busy:.2f} ms; first loss "
-          f"{cl_first:.7f} against {first:.7f}; top kernels: "
-          + ", ".join(f"{k[:60]} {v[0]:.2f} x{v[1]:g}" for k, v in cl_top) + f"; {smi}")
-    res.update(stage_ms=stage_ms, stage_busy_ms=stage_busy, stage_launches=stage_launches,
-               channels_last_ms=cl_ms, channels_last_busy_ms=cl_busy, channels_last_first_loss=[cl_first, first])
-    del st, cl
 
     best = os.path.join(work, "yolo_best.ctd")
     if not os.path.exists(best) or out["ap"] is None or not np.isfinite(out["best_loss"]):

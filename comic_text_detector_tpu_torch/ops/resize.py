@@ -152,28 +152,12 @@ def resize_bilinear_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Device bilinear resize of the last two dimensions of a (..., H, W)
-    tensor (channels first, the port's layout; the JAX package's
-    ``resize_bilinear`` takes (H, W[, C])): cv2's half-pixel sampling, no
-    antialias, edges clamped, computed in float32 in the JAX function's
-    order; integer inputs are rounded and clipped to [0, 255]."""
-    h, w = x.shape[-2:]
-    oh, ow = out_hw
-    if (h, w) == (oh, ow):
+    """Device bilinear resize of a float NCHW batch to ``out_hw`` (the JAX
+    package's ``resize_bilinear`` takes (H, W[, C])): cv2's half-pixel
+    sampling, no antialias, edges clamped."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
-    dev = x.device
-    r0, r1, rf = (torch.from_numpy(a).to(dev) for a in _lerp_weights(oh, h))
-    c0, c1, cf = (torch.from_numpy(a).to(dev) for a in _lerp_weights(ow, w))
-    xf = x.to(torch.float32)
-    rf = rf[:, None]
-    xr0, xr1 = xf.index_select(-2, r0.long()), xf.index_select(-2, r1.long())
-    c0, c1 = c0.long(), c1.long()
-    top = xr0.index_select(-1, c0) * (1 - cf) + xr0.index_select(-1, c1) * cf
-    bot = xr1.index_select(-1, c0) * (1 - cf) + xr1.index_select(-1, c1) * cf
-    out = top * (1 - rf) + bot * rf
-    if not x.is_floating_point():
-        out = torch.round(out).clamp(0, 255).to(x.dtype)
-    return out
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
 def _lerp_weights(dst: int, src: int):

@@ -90,7 +90,9 @@ def build_model(variables=None, img_size: int = 640):
         init_variables(model, torch.Generator().manual_seed(0))
         initialize_detect_biases(model, img_size=img_size)
     else:
-        model.load_state_dict(train_state_dict_from_jax(variables), strict=True)
+        sd = train_state_dict_from_jax(variables)
+        sd.update((k, v) for k, v in model.state_dict().items() if k.endswith(".anchors"))
+        model.load_state_dict(sd, strict=True)
     return model
 
 

@@ -132,19 +132,16 @@ def _anchors_key(spec) -> Tuple[str, torch.Tensor]:
     return f"blk_det.model.{detect_idx}.anchors", anchors / strides
 
 
-def train_state_dict_from_jax(variables: Mapping[str, Any], cfg: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+def train_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX train variables (nested numpy dict) -> the port's state dict:
     ``TextDetTrain``'s from ``backbone``, ``seg_net`` and, for DB training,
-    ``dbnet``; ``BlkDetTrain``'s from ``blk_det`` (with Detect's anchors
-    buffer from ``cfg``'s graph)."""
+    ``dbnet``; ``BlkDetTrain``'s from ``blk_det``, less Detect's anchors
+    buffer, which JAX has not (the caller takes the model's own)."""
     out: Dict[str, torch.Tensor] = {}
     stats = variables.get("batch_stats", {})
     for subnet, params in variables["params"].items():
         for k, v in _subnet_state_dict(params, stats.get(subnet, {})).items():
             out[f"{subnet}.{k}"] = torch.from_numpy(np.ascontiguousarray(v))
-    if "blk_det" in variables["params"]:
-        key, anchors = _anchors_key(parse_graph(cfg or YOLOV5S_CFG))
-        out[key] = anchors
     return out
 
 

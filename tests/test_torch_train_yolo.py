@@ -241,9 +241,13 @@ def batch():
     return imgs, labels, mask
 
 
-def port_model(variables):
-    model = build_blk_train_model(CFG)
-    model.load_state_dict(train_state_dict_from_jax(variables, CFG), strict=True)
+def port_model(variables, cfg=CFG):
+    """``BlkDetTrain`` of ``cfg`` holding JAX-layout ``variables``; Detect's
+    anchors buffer, which JAX has not, is the model's own."""
+    model = build_blk_train_model(cfg)
+    sd = train_state_dict_from_jax(variables)
+    sd.update((k, v) for k, v in model.state_dict().items() if k.endswith(".anchors"))
+    model.load_state_dict(sd, strict=True)
     return model
 
 
@@ -449,16 +453,10 @@ def test_eval_detection_ap_matches_jax(pages, deploy):
 def test_resize_bilinear_matches_jax():
     rng = np.random.default_rng(8)
     x = rng.uniform(0, 1, (3, 37, 53)).astype(np.float32)
-    u8 = rng.integers(0, 256, (3, 37, 53), dtype=np.uint8)
     for out_hw in ((30, 44), (37, 53), (64, 90), (1, 7)):
         ref = np.asarray(jax.jit(jax_resize_bilinear, static_argnums=1)(jnp.asarray(x.transpose(1, 2, 0)), out_hw))
         ours = resize_bilinear(torch.from_numpy(x)[None], out_hw)[0]
         np.testing.assert_allclose(ours.permute(1, 2, 0).numpy(), ref, rtol=0, atol=1e-5)
-        ref8 = np.asarray(jax_resize_bilinear(jnp.asarray(u8.transpose(1, 2, 0)), out_hw))
-        ours8 = resize_bilinear(torch.from_numpy(u8), out_hw)
-        assert ours8.dtype == torch.uint8
-        assert np.abs(ours8.permute(1, 2, 0).numpy().astype(int) - ref8.astype(int)).max() <= (0 if out_hw == (37, 53)
-                                                                                              else 1)
 
 
 def test_scale_img_and_augmented_detect_match_jax(init_vars):
@@ -482,8 +480,7 @@ def test_yolo_train_tree_round_trips(deploy, tmp_path):
     the tree saved compact reads back in JAX's load_compact; a trained
     blk_det replaces the deploy tree's."""
     ours = blk_train_from_deploy(load_npz(WEIGHTS))
-    model = build_blk_train_model()
-    model.load_state_dict(train_state_dict_from_jax(ours), strict=True)
+    model = port_model(ours, YOLOV5S_CFG)
     back = variables_from_state_dict(model.state_dict())
     ref = leaves({col: {"blk_det": deploy[col]["blk_det"]} for col in deploy})
     got = leaves(back)
@@ -514,9 +511,7 @@ def test_handoff_gives_jax_backbone_split(deploy):
     ref = {"params": {k: blk_params[k] for k in backbone_keys},
            "batch_stats": {k: blk_stats[k] for k in backbone_keys if k in blk_stats}}
 
-    model = build_blk_train_model()
-    model.load_state_dict(train_state_dict_from_jax(jax.device_get({"params": state.params,
-                                                                    "batch_stats": state.batch_stats})))
+    model = port_model(jax.device_get({"params": state.params, "batch_stats": state.batch_stats}), YOLOV5S_CFG)
     seg = train_from_deploy(deploy_from_train(variables_from_state_dict(model.state_dict()), load_npz(WEIGHTS)))
     got = leaves({col: seg[col]["backbone"] for col in ("params", "batch_stats")})
     want = leaves(jax.device_get(ref))
