@@ -131,9 +131,23 @@ before it starts so a stall shows where it stopped:
    batch; ``augmented_detect`` on the card against the CPU (within 1e-3
    of 1 + |value|); no launch of K1-K6 across all of it; then the
    YOLO-trained ``blk_det`` in the deploy tree, served by ``TextDetector``,
-   and its layers 0-9 as the seg trainer's backbone for one step.
+   and its layers 0-9 as the seg trainer's backbone for one step;
+16. the model files (``model_files_phase``), each written into a temporary
+   directory and served by ``TextDetector`` at 1024, float32, device refine,
+   packed masks, on phase 4's pages with every launch count set to 0 just
+   before and read just after (K1, K2, K3 and both K6 functions must
+   launch), against ``TextDetector("data/flagship_r2.npz")``: the
+   reference ``.pt`` (``export_torch_checkpoint``), the reference's three
+   training files through ``load_from_parts`` and the native msgpack file
+   (``save_variables`` / ``from_native``), each bit-identical; the
+   ``.onnx`` (``export_onnx`` at 128, Conv+BN folded) with its net's
+   outputs at 1024 within 1e-4 on the maps and 1e-3 + 5e-3 on the boxes
+   and refined IoU >= 0.99, with the ingestion's host seconds; the ``.pt2``
+   (``export_program`` on the card at 1024) with its net within 1e-4 of
+   the module's, and ms/page of both detectors.
 
-Prints ``{"train": {...}}`` (phases 13-15) and ``{"kernels": [...]}`` on
+Prints ``{"train": {...}}`` (phases 13-15), ``{"model_files": {...}}``
+(phase 16) and ``{"kernels": [...]}`` on
 lines of their own (every kernel with its event ``ms`` and its
 ``device_ms`` a launch on the card's clock), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -1391,7 +1405,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
                 "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
         results = {}
 
-        phase(f"13/15 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        phase(f"13/16 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
         hyp_seg = {"data": data, "model": {"act": "leaky"},
                    "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
                              "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
@@ -1428,7 +1442,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
         unet_vars = variables_from_state_dict(st.model.state_dict())
         del st, seg_out
 
-        phase(f"14/15 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        phase(f"14/16 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
         db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
         hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
                   "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
@@ -1526,12 +1540,138 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
               f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
         del st, db_out
 
-        phase(f"15/15 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
+        phase(f"15/16 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
               "in train mode, flagship_r2's blk_det")
         results["yolo"] = yolo_phase(dev, smi, counters, work, train_dir, val_dir, deploy, imgsz, bs)
         return results
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def net_outputs(model, pages, size: int, device: str):
+    """The net's (blk, seg, det) on each page's letterbox, as ``run_net``
+    gives them."""
+    import torch
+
+    from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8
+    from comic_text_detector_tpu_torch.pipeline.detector import run_net
+
+    with torch.no_grad():
+        return [run_net(model, letterbox_device_u8(torch.from_numpy(p).to(device), size)[None]) for p in pages]
+
+
+def model_files_phase(det_base, pages, drive, names, smi: str, size: int = 1024, device: str = "cuda") -> dict:
+    """Phase 16: every model file ``TextDetector`` loads or writes, each
+    written into a temporary directory, loaded, and run on ``pages`` through
+    ``drive`` (every launch count set to 0 just before, read just after; a
+    kernel of ``names`` not launched fails), against ``det_base``
+    (``TextDetector(WEIGHTS, ...)`` in the same configuration): the
+    reference ``.pt``, the three training files, the native msgpack file
+    bit-identical; the ``.onnx`` (Conv+BN folded by the export) within the
+    JAX ingestion test's tolerances and refined IoU >= 0.99; the ``.pt2``
+    program within 1e-4 of the module.  Returns the numbers printed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
+    from comic_text_detector_tpu_torch.export import export_onnx, export_program
+    from comic_text_detector_tpu_torch.models.convert import export_torch_checkpoint, load_from_parts
+    from comic_text_detector_tpu_torch.models.onnx_ingest import convert_onnx_checkpoint
+    from comic_text_detector_tpu_torch.pipeline import TextDetector
+    from comic_text_detector_tpu_torch.weights import load_npz
+
+    kw = dict(input_size=size, device=device, refine_backend="device", mask_transfer="packed")
+    base, base_counts = drive(lambda: [det_base(p) for p in pages], names)
+    phase(f"  baseline TextDetector(flagship_r2.npz): launches {base_counts}")
+    variables = load_npz(WEIGHTS)
+    out = {}
+
+    def serve(fmt: str, make, bit_identical: bool = False):
+        """Load a detector with ``make``, run the pages through ``drive``;
+        with ``bit_identical``, fail unless they equal the baseline's."""
+        t0 = time.perf_counter()
+        det = make()
+        load_s = time.perf_counter() - t0
+        res, counts = drive(lambda: [det(p) for p in pages], names)
+        same = all(same_outputs(r, b) for r, b in zip(res, base))
+        ious = [1.0 if np.array_equal(r[1], b[1]) else mask_iou(r[1], b[1]) for r, b in zip(res, base)]
+        out[fmt] = {"load_s": load_s, "launches": counts, "bit_identical": same, "refined_iou": ious,
+                    "blocks": [len(r[2]) for r in res], "blocks_base": [len(b[2]) for b in base]}
+        phase(f"  {fmt}: loaded in {load_s:.2f} s, {out[fmt]['blocks']} blocks (base {out[fmt]['blocks_base']}), "
+              f"bit-identical {same}, refined IoU {min(ious):.5f}; launches {counts}; {smi}")
+        if bit_identical and not same:
+            raise AssertionError(f"{fmt}: pages differ from the .npz detector's")
+        return det
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = export_torch_checkpoint(variables)
+        pt = os.path.join(d, "comictextdetector.pt")
+        torch.save(ckpt, pt)
+        serve(".pt", lambda: TextDetector(pt, **kw), bit_identical=True)
+
+        files = []
+        for name, part in (("blk.pt", {"cfg": YOLOV5S_CFG, "weights": ckpt["blk_det"]["weights"]}),
+                           ("unet_best.ckpt", {"weights": ckpt["text_seg"], "epoch": 1}),
+                           ("db_best.ckpt", {"weights": ckpt["text_det"], "epoch": 1})):
+            files.append(os.path.join(d, name))
+            torch.save(part, files[-1])
+
+        def from_parts():
+            parts_vars, cfg = load_from_parts(*files)
+            return TextDetector(variables=parts_vars, cfg=cfg, **kw)
+
+        serve("three parts", from_parts, bit_identical=True)
+
+        native = os.path.join(d, "ctd.msgpack")
+        det_base.save_variables(native)
+        serve("native", lambda: TextDetector.from_native(native, **kw), bit_identical=True)
+
+        onnx_path = os.path.join(d, "comictextdetector.pt.onnx")
+        t0 = time.perf_counter()
+        export_onnx(det_base.model, onnx_path, input_size=128)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_onnx_checkpoint(onnx_path)
+        ingest_s = time.perf_counter() - t0
+        det_onnx = serve(".onnx", lambda: TextDetector(onnx_path, **kw))
+        gaps = {"blk": 0.0, "seg": 0.0, "det": 0.0}
+        base_nets = net_outputs(det_base.model, pages, size, device)
+        for got, want in zip(net_outputs(det_onnx.model, pages, size, device), base_nets):
+            for name, g, w in zip(gaps, got, want):
+                gaps[name] = max(gaps[name], float((g - w).abs().max()))
+            within = [torch.allclose(got[0], want[0], rtol=1e-3, atol=5e-3),
+                      torch.allclose(got[1], want[1], rtol=0, atol=1e-4),
+                      torch.allclose(got[2], want[2], rtol=0, atol=1e-4)]
+            if not all(within):
+                raise AssertionError(f".onnx net outside blocks 1e-3 + 5e-3, mask and lines 1e-4: gaps {gaps}")
+        if min(out[".onnx"]["refined_iou"]) < 0.99:
+            raise AssertionError(f".onnx refined IoU {out['.onnx']['refined_iou']} under 0.99")
+        out[".onnx"].update(export_s=export_s, ingest_host_s=ingest_s, net_gap=gaps)
+        phase(f"  .onnx: export at 128 {export_s:.2f} s (Conv+BN folded), ingestion {ingest_s:.3f} s on the host; "
+              f"net at {size} against the .npz net, largest gaps {gaps}; {smi}")
+
+        pt2 = os.path.join(d, "ctd.pt2")
+        t0 = time.perf_counter()
+        export_program(variables, pt2, input_size=size, device=device)
+        export_s = time.perf_counter() - t0
+        det_pt2 = serve(".pt2", lambda: TextDetector(pt2, **kw))
+        gap, bit = 0.0, True
+        for got, want in zip(net_outputs(det_pt2.model, pages, size, device), base_nets):
+            gap = max(gap, max(float((g - w).abs().max()) for g, w in zip(got, want)))
+            bit = bit and all(torch.equal(g, w) for g, w in zip(got, want))
+        if gap > 1e-4:
+            raise AssertionError(f".pt2 net {gap} from the module's, over 1e-4")
+        ms = {"program": [], "module": []}  # in turns: program, module, module, program
+        for name, det in (("program", det_pt2), ("module", det_base), ("module", det_base), ("program", det_pt2)):
+            ms[name].append(page_time_of(det, pages))
+        out[".pt2"].update(export_s=export_s, net_gap=gap, net_bit_identical=bit, ms_per_page=ms["program"],
+                           ms_per_page_module=ms["module"])
+        phase(f"  .pt2: torch.export at {size} on {device} {export_s:.2f} s; net outputs within {gap:.3e} of the "
+              f"module's (bit-identical {bit}); ms/page in turns: program {ms['program']}, module "
+              f"{ms['module']}; {smi}")
+    return out
 
 
 def main() -> None:
@@ -1549,7 +1689,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/15 device")
+    phase("1/16 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1560,13 +1700,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/15 build kernels (nvcc, one per source, in parallel)")
+    phase("2/16 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/15 kernels vs plain versions, bit for bit")
+    phase("3/16 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -1637,7 +1777,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/15 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/16 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -1817,7 +1957,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/15 output check: card vs the port's CPU route")
+    phase("5/16 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -1855,7 +1995,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/15 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/16 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -1904,7 +2044,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/15 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/16 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -1925,7 +2065,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/15 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/16 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -2067,7 +2207,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/15 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/16 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -2098,10 +2238,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/15 K5 vs its plain version, bit for bit")
+    phase("10/16 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/15 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/16 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2179,7 +2319,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/15 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/16 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
@@ -2433,6 +2573,10 @@ def main() -> None:
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     train = train_phases(dev, smi, counters)
     print(json.dumps({"train": train, "card": smi}), flush=True)
+    phase("16/16 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
+          "device refine, packed masks")
+    files = model_files_phase(det_dev, pages, drive, path_1024, smi)
+    print(json.dumps({"model_files": files, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

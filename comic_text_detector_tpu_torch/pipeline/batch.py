@@ -95,7 +95,7 @@ class BatchTextDetector:
         self.nms_thresh = nms_thresh
         self.db_thresh = C.DEFAULT_DB_THRESH
         self.box_thresh = C.DEFAULT_BOX_THRESH
-        self.model = build_model(variables, None, cfg, act, half, self.device)
+        self.model = build_model(variables, None, cfg, act, half, self.device, input_size)
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         """Host page -> device, through a pinned buffer on the card (the

@@ -27,7 +27,9 @@ import torch
 
 from comic_text_detector_tpu_torch import constants as C
 from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
-from comic_text_detector_tpu_torch.models.detector import build_inference_model
+from comic_text_detector_tpu_torch.export.program import load_exported, read_sidecar
+from comic_text_detector_tpu_torch.models.detector import TextDetBase, build_inference_model
+from comic_text_detector_tpu_torch.models.onnx_ingest import convert_onnx_checkpoint
 from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
 from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
@@ -42,13 +44,19 @@ from comic_text_detector_tpu_torch.ops.resize import (
 from comic_text_detector_tpu_torch.postproc.textblock import TextBlock, group_output
 from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
 from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.utils.serialization import msgpack_restore, to_bytes
 from comic_text_detector_tpu_torch.utils.imgproc import (
     connected_components_with_stats,
     expand_textwindow,
     intersect_area,
     threshold_binary,
 )
-from comic_text_detector_tpu_torch.weights import load_npz, load_reference_pt, state_dict_from_jax
+from comic_text_detector_tpu_torch.weights import (
+    load_npz,
+    load_reference_pt,
+    state_dict_from_jax,
+    variables_from_state_dict,
+)
 
 
 def postprocess_yolo(rows: np.ndarray, count: int, resize_ratio):
@@ -75,22 +83,41 @@ def scale_lines(dboxes, dscores, dvalid, size: int, box_thresh: float, resize_ra
 
 
 def build_model(variables, model_path: Optional[str], cfg: Optional[dict], act: str, half: bool,
-                device: torch.device):
+                device: torch.device, input_size: int):
     """The three-head net with its weights, on ``device``, computing in bf16
-    when ``half`` (float32 parameters either way)."""
+    when ``half`` (float32 parameters either way).  The weights come from
+    ``variables`` (JAX layout) or ``model_path``: ``.npz`` (the compact
+    checkpoint), ``.onnx`` (the reference's deploy file), ``.pt2`` (a
+    program from ``export/program.py::export_program``, which stands in for
+    the module; its act, dtype and ``input_size`` must be these) or a
+    reference ``.pt``."""
     path = None if model_path is None else str(model_path)
     if variables is not None:
         model_cfg = cfg or YOLOV5S_CFG
         state = state_dict_from_jax(variables, model_cfg)
     elif path is None:
         raise ValueError("provide model_path or variables")
-    elif path.endswith((".onnx", ".stablehlo")):
-        raise NotImplementedError(
-            f"{path}: .onnx and .stablehlo models come with the ingestion/export slice of the port"
+    elif path.endswith(".stablehlo"):
+        raise ValueError(
+            f"{path}: .stablehlo is the JAX package's deploy artifact (jax.export); the port's is a "
+            "torch.export program, .pt2 (comic_text_detector_tpu_torch.export.export_program)"
         )
+    elif path.endswith(".pt2"):
+        meta = read_sidecar(path)
+        dtype = "bfloat16" if half else "float32"
+        if (meta["act"], meta["dtype"]) != (act, dtype):
+            raise ValueError(f"{path} computes with act {meta['act']!r} in {meta['dtype']}, "
+                             f"not act {act!r} in {dtype}")
+        if meta["input"][2] != input_size:
+            raise ValueError(f"{path} was exported at input size {meta['input'][2]} (its sidecar "
+                             f"{path}.json), not {input_size}")
+        return load_exported(path, device)
     elif path.endswith(".npz"):
         model_cfg = cfg or YOLOV5S_CFG
         state = state_dict_from_jax(load_npz(path), model_cfg)
+    elif path.endswith(".onnx"):
+        model_cfg = cfg or YOLOV5S_CFG
+        state, _ = convert_onnx_checkpoint(path, model_cfg)
     else:
         state, ckpt_cfg = load_reference_pt(path)
         model_cfg = cfg or ckpt_cfg or YOLOV5S_CFG
@@ -118,11 +145,12 @@ class TextDetector:
 
     Usage::
 
-        det = TextDetector("data/flagship_r2.npz")      # or a reference .pt
+        det = TextDetector("data/flagship_r2.npz")      # .npz, .pt, .onnx or .pt2
         mask, mask_refined, blk_list = det(img_bgr)     # uint8 BGR page
 
     Runs on ``device="cuda"``; ``device="cpu"`` must be asked for.
-    ``half=True`` runs the net in bf16.
+    ``half=True`` runs the net in bf16.  ``save_variables`` /
+    ``from_native`` write and read the native (flax msgpack) format.
     """
 
     lang_list = C.LANG_LIST
@@ -159,7 +187,24 @@ class TextDetector:
         self.box_thresh = C.DEFAULT_BOX_THRESH
         self.unclip_ratio = C.DEFAULT_UNCLIP_RATIO
 
-        self.model = build_model(variables, model_path, cfg, act, half, self.device)
+        self.model = build_model(variables, model_path, cfg, act, half, self.device, input_size)
+
+    def save_variables(self, path: str) -> None:
+        """Write the weights in the native format, the bytes the JAX
+        package's ``save_variables`` writes for the same weights."""
+        if not isinstance(self.model, TextDetBase):
+            raise ValueError("this detector runs a .pt2 program, which holds no variables to save")
+        with open(path, "wb") as f:
+            f.write(to_bytes(variables_from_state_dict(self.model.state_dict())))
+
+    @classmethod
+    def from_native(cls, path: str, input_size: int = C.DEFAULT_INPUT_SIZE, act: str = "leaky",
+                    device: str = "cuda", **kw) -> "TextDetector":
+        """A detector from a native-format file (the port's or the JAX
+        package's ``save_variables``)."""
+        with open(path, "rb") as f:
+            variables = msgpack_restore(f.read())
+        return cls(variables=variables, input_size=input_size, act=act, device=device, **kw)
 
     @torch.no_grad()
     def _device_step(self, img: np.ndarray):

@@ -6,11 +6,14 @@
 * :func:`state_dict_from_jax` turns that nested dict (``{'params': ...,
   'batch_stats': ...}``) into the port's ``TextDetBase`` state dict: conv
   HWIO -> OIHW, transposed conv flipped-HWIO -> (I, O, kh, kw), BatchNorm
-  scale/bias/mean/var -> weight/bias/running_mean/running_var.  Own copy of
-  ``models/convert.py::export_state_dict`` / ``export_torch_checkpoint``.
+  scale/bias/mean/var -> weight/bias/running_mean/running_var, one subnet
+  at a time through :func:`export_state_dict` (own copy of the JAX
+  ``models/convert.py::export_state_dict``).
 * :func:`load_reference_pt` reads a reference-format combined ``.pt``
   (``{'blk_det': {'cfg', 'weights'}, 'text_seg': sd, 'text_det': sd}``),
-  whose keys already have the port's layout.
+  whose keys already have the port's layout, through
+  :func:`state_dict_from_parts` (which also takes the ONNX ingestion's
+  state dicts).
 * The train trees: :func:`train_state_dict_from_jax` /
   :func:`variables_from_state_dict` carry the JAX ``TextDetTrain``
   variables (``backbone``, ``seg_net``, ``dbnet``) and ``BlkDetTrain``
@@ -83,7 +86,10 @@ def _torch_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _subnet_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+def export_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """One subnet's JAX-layout ``params`` / ``batch_stats`` trees -> its
+    torch-layout state dict of NumPy arrays, with int64
+    ``num_batches_tracked`` zeros (JAX ``models/convert.py::export_state_dict``)."""
     sd: Dict[str, np.ndarray] = {}
 
     def walk_params(node, path):
@@ -125,11 +131,19 @@ def _subnet_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any]) -> D
     return sd
 
 
-def _anchors_key(spec) -> Tuple[str, torch.Tensor]:
+def detect_anchors(spec) -> Tuple[str, torch.Tensor]:
+    """Detect's ``anchors`` buffer for the graph ``spec``: its state dict
+    key and anchors / strides, as the reference's ``.pt`` holds it."""
     detect_idx = max(ls.index for ls in spec.layers)
     anchors = torch.tensor(spec.anchors, dtype=torch.float32).view(len(spec.anchors), -1, 2)
     strides = torch.tensor(spec.strides, dtype=torch.float32).view(-1, 1, 1)
     return f"blk_det.model.{detect_idx}.anchors", anchors / strides
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A torch tensor of its own memory with ``arr``'s shape (0-d stays 0-d,
+    where ``np.ascontiguousarray`` would make it (1,))."""
+    return torch.from_numpy(np.array(arr))
 
 
 def train_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -140,8 +154,8 @@ def train_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.T
     out: Dict[str, torch.Tensor] = {}
     stats = variables.get("batch_stats", {})
     for subnet, params in variables["params"].items():
-        for k, v in _subnet_state_dict(params, stats.get(subnet, {})).items():
-            out[f"{subnet}.{k}"] = torch.from_numpy(np.ascontiguousarray(v))
+        for k, v in export_state_dict(params, stats.get(subnet, {})).items():
+            out[f"{subnet}.{k}"] = _tensor(v)
     return out
 
 
@@ -271,18 +285,20 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg: Optional[dict] = None
     spec = parse_graph(cfg or YOLOV5S_CFG)
     out: Dict[str, torch.Tensor] = {}
     for subnet in SUBNETS:
-        sd = _subnet_state_dict(variables["params"][subnet], variables["batch_stats"][subnet])
+        sd = export_state_dict(variables["params"][subnet], variables["batch_stats"][subnet])
         for k, v in sd.items():
-            out[f"{subnet}.{k}"] = torch.from_numpy(np.ascontiguousarray(v))
-    key, anchors = _anchors_key(spec)
+            out[f"{subnet}.{k}"] = _tensor(v)
+    key, anchors = detect_anchors(spec)
     out[key] = anchors
     return out
 
 
-def _fold_fused_bn(sd: Dict[str, torch.Tensor], fused_bn_eps: float = 1e-3) -> Dict[str, torch.Tensor]:
+def expand_fused_bn(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A ``X.conv.bias`` with no ``X.bn.weight`` is a conv+BN pair the
-    reference fused at load (models/yolov5/yolo.py:185-192): give it an
-    exact-identity BN carrying the fused bias, as the JAX converter does."""
+    reference fused at load (models/yolov5/yolo.py:185-192), always a
+    yolov5 Conv: give it an exact-identity BN under that BN's eps 1e-3
+    (scale 1, mean 0, var 1 - eps) carrying the fused bias, as the JAX
+    converter does."""
     out = dict(sd)
     for key in list(sd):
         if not key.endswith(".conv.bias"):
@@ -295,8 +311,35 @@ def _fold_fused_bn(sd: Dict[str, torch.Tensor], fused_bn_eps: float = 1e-3) -> D
         out[f"{parent}.bn.weight"] = torch.ones(c)
         out[f"{parent}.bn.bias"] = bias
         out[f"{parent}.bn.running_mean"] = torch.zeros(c)
-        out[f"{parent}.bn.running_var"] = torch.full((c,), 1.0 - fused_bn_eps)
+        out[f"{parent}.bn.running_var"] = torch.full((c,), 1.0 - 1e-3)
         out[f"{parent}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return out
+
+
+def state_dict_from_parts(parts: Mapping[str, Mapping[str, torch.Tensor]],
+                          cfg: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Reference-layout state dicts by subnet (``blk_det``, ``text_seg``,
+    ``text_det``; each may be wrapped as ``{'weights': sd, ...}``) -> the
+    port's ``TextDetBase`` state dict: fused conv+BN pairs get an identity
+    BN, Detect's ``anchor_grid`` and ``stride`` are dropped, a BN without
+    ``num_batches_tracked`` (an ONNX export has none) gets a zero, and
+    Detect's ``anchors`` come from ``cfg`` where the parts have none."""
+    out: Dict[str, torch.Tensor] = {}
+    for subnet in SUBNETS:
+        sd = parts[subnet]
+        if isinstance(sd, Mapping) and "weights" in sd:
+            sd = sd["weights"]
+        for k, v in expand_fused_bn(sd).items():
+            if k.endswith(".anchor_grid") or k in ("anchors", "anchor_grid", "stride"):
+                continue  # derived from the cfg, not parameters of the port
+            if k.endswith(".num_batches_tracked"):
+                v = v.reshape(())  # export_torch_checkpoint's files, in both packages, hold it as (1,)
+            out[f"{subnet}.{k}"] = v.float() if v.is_floating_point() else v
+            if k.endswith(".running_var"):
+                out.setdefault(f"{subnet}.{k[:-len('running_var')]}num_batches_tracked",
+                               torch.tensor(0, dtype=torch.int64))
+    key, anchors = detect_anchors(parse_graph(cfg or YOLOV5S_CFG))
+    out.setdefault(key, anchors)
     return out
 
 
@@ -306,19 +349,4 @@ def load_reference_pt(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     blk = ckpt["blk_det"]
     cfg = blk.get("cfg") if isinstance(blk, Mapping) else None
-    parts = {
-        "blk_det": blk["weights"] if isinstance(blk, Mapping) and "weights" in blk else blk,
-        "text_seg": ckpt["text_seg"],
-        "text_det": ckpt["text_det"],
-    }
-    out: Dict[str, torch.Tensor] = {}
-    for subnet, sd in parts.items():
-        if isinstance(sd, Mapping) and "weights" in sd:
-            sd = sd["weights"]
-        for k, v in _fold_fused_bn(dict(sd)).items():
-            if k.endswith(".anchor_grid") or k in ("anchors", "anchor_grid", "stride"):
-                continue  # derived from the cfg, not parameters of the port
-            out[f"{subnet}.{k}"] = v.float() if v.is_floating_point() else v
-    key, anchors = _anchors_key(parse_graph(cfg or YOLOV5S_CFG))
-    out.setdefault(key, anchors)
-    return out, cfg
+    return state_dict_from_parts(ckpt, cfg), cfg

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of
-``comic_text_detector_tpu_torch`` loads no JAX, flax, optax, PIL or cv2
-and no module of the JAX package.  Runs in a fresh interpreter, since this test
-process imports JAX for the parity tests.  The kernel and decode modules
+``comic_text_detector_tpu_torch`` loads no JAX, flax, optax, msgpack,
+onnx, onnxscript, PIL or cv2 and no module of the JAX package.  Runs in a
+fresh interpreter, since this test process imports JAX for the parity
+tests.  The kernel and decode modules
 are named, so that a module missing from the walk fails the test."""
 
 import os
@@ -19,7 +20,8 @@ import comic_text_detector_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "comic_text_detector_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "onnx", "onnxscript", "PIL", "cv2",
+          "comic_text_detector_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("MODULES", len(names))
 print("NAMES", ",".join(names))
@@ -42,7 +44,8 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
                    "training.losses", "training.init", "training.steps", "training.checkpoint",
                    "training.metrics", "training.seg_trainer", "training.db_trainer", "data.augment",
                    "data.maps", "data.seg_dataset", "data.db_dataset", "utils.io", "utils.log",
-                   "training.yolo_loss", "training.yolo_trainer", "data.blk_dataset"):
+                   "training.yolo_loss", "training.yolo_trainer", "data.blk_dataset", "utils.serialization",
+                   "models.onnx_ingest", "models.convert", "export.program", "export.onnx"):
         assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
 

@@ -135,17 +135,18 @@ def test_packed_without_device_refine_raises():
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [dict(mesh=object()), dict(model_path="model.onnx", variables=None),
-     dict(model_path="model.stablehlo", variables=None)],
+    "kwargs,error",
+    [(dict(mesh=object()), NotImplementedError),
+     (dict(model_path="model.stablehlo", variables=None), ValueError)],
 )
-def test_later_slices_raise_not_implemented(kwargs):
-    """What the port does not run raises: a TPU mesh for the batch stream,
-    and the .onnx and .stablehlo model formats."""
+def test_later_slices_raise_not_implemented(kwargs, error):
+    """What the port does not run raises: a TPU mesh for the batch stream
+    (not ported), and the JAX package's .stablehlo artifact (the port's
+    deploy artifact is a .pt2 program)."""
     args = dict(variables={}, device="cpu")
     args.update(kwargs)
     cls = BatchTextDetector if "mesh" in args else TextDetector
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error, match=None if error is NotImplementedError else r"JAX package.*\.pt2"):
         cls(**args)
 
 
