@@ -144,10 +144,35 @@ before it starts so a stall shows where it stopped:
    outputs at 1024 within 1e-4 on the maps and 1e-3 + 5e-3 on the boxes
    and refined IoU >= 0.99, with the ingestion's host seconds; the ``.pt2``
    (``export_program`` on the card at 1024) with its net within 1e-4 of
-   the module's, and ms/page of both detectors.
+   the module's, and ms/page of both detectors;
+17. the YOLO graph's block variants (``variant_phase``): ``V5S_TR``
+   (yolov5 v5.0 ``models/hub/yolov5s-transformer.yaml``: Focus, SPP, C3TR
+   over 32x32 tokens at 1024) and ``V5S_GHOST`` (v6.0
+   ``models/hub/yolov5s-ghost.yaml``: GhostConv, C3Ghost,
+   GhostBottleneck), at full width (``nc: 2``, depth 0.33, width 0.50),
+   random weights from seeded generators, BatchNorm statistics of two
+   seeded pages and the Detect biases spread so that a few blocks remain
+   (``variant_variables``), through ``TextDetector`` at
+   1024, device refine, packed masks, float32 and bf16, on phase 4's pages
+   with every launch count set to 0 just before and read just after (K1
+   and K2 must launch), each call repeated bit-identical; in float32 the
+   card against the CPU route on phase 5's page (the same blocks within 1
+   px and refined IoU >= 0.99); in bf16 every step of the first Focus,
+   SPP, C3TR, GhostConv and C3Ghost held alone on the CPU's bf16 input of
+   phase 5's page at 1024, its card-vs-CPU gap at most a quarter of the
+   CPU's own bf16-vs-float32 gap, each block around them at most twice
+   (``hold_bf16_pieces``: the whole path's bf16 is chaotic on random
+   weights);
+   ``V5S_TR``'s ``.pt``, native file and the ``.pt2`` that the CLI's
+   ``export`` writes, each serving the pages bit-identical to the
+   variables-built detector; the CLI's ``detect`` on a PNG page and
+   ``annotate`` on a directory of 4 PNG pages (flagship weights) against
+   direct calls; ms a page of both variant detectors and the flagship's
+   on one page in two turns, the net alone, and the load seconds of the
+   ``.pt`` and the ``.pt2``.
 
 Prints ``{"train": {...}}`` (phases 13-15), ``{"model_files": {...}}``
-(phase 16) and ``{"kernels": [...]}`` on
+(phase 16), ``{"variants": {...}}`` (phase 17) and ``{"kernels": [...]}`` on
 lines of their own (every kernel with its event ``ms`` and its
 ``device_ms`` a launch on the card's clock), and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
@@ -1405,7 +1430,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
                 "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
         results = {}
 
-        phase(f"13/16 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        phase(f"13/17 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
         hyp_seg = {"data": data, "model": {"act": "leaky"},
                    "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
                              "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
@@ -1442,7 +1467,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
         unet_vars = variables_from_state_dict(st.model.state_dict())
         del st, seg_out
 
-        phase(f"14/16 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        phase(f"14/17 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
         db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
         hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
                   "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
@@ -1540,7 +1565,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
               f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
         del st, db_out
 
-        phase(f"15/16 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
+        phase(f"15/17 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
               "in train mode, flagship_r2's blk_det")
         results["yolo"] = yolo_phase(dev, smi, counters, work, train_dir, val_dir, deploy, imgsz, bs)
         return results
@@ -1674,6 +1699,341 @@ def model_files_phase(det_base, pages, drive, names, smi: str, size: int = 1024,
     return out
 
 
+def v5s_tr_cfg() -> dict:
+    """yolov5 v5.0 ``models/hub/yolov5s-transformer.yaml`` with this repo's
+    ``nc: 2`` and anchors (depth 0.33, width 0.50): the v5.0 backbone (Focus
+    stem, SPP, three C3TR last) and the v5.0 yolov5s head, which is
+    ``YOLOV5S_CFG``'s."""
+    import copy
+
+    from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
+
+    cfg = copy.deepcopy(YOLOV5S_CFG)
+    cfg["backbone"] = [
+        [-1, 1, "Focus", [64, 3]],
+        [-1, 1, "Conv", [128, 3, 2]],
+        [-1, 3, "C3", [128]],
+        [-1, 1, "Conv", [256, 3, 2]],
+        [-1, 9, "C3", [256]],
+        [-1, 1, "Conv", [512, 3, 2]],
+        [-1, 9, "C3", [512]],
+        [-1, 1, "Conv", [1024, 3, 2]],
+        [-1, 1, "SPP", [1024, [5, 9, 13]]],
+        [-1, 3, "C3TR", [1024, False]],
+    ]
+    return cfg
+
+
+def v5s_ghost_cfg() -> dict:
+    """yolov5 v6.0 ``models/hub/yolov5s-ghost.yaml`` with this repo's
+    ``nc: 2`` and anchors: ``YOLOV5S_CFG`` with every Conv after layer 0 a
+    GhostConv and every C3 a C3Ghost."""
+    import copy
+
+    from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
+
+    cfg = copy.deepcopy(YOLOV5S_CFG)
+    for i, row in enumerate(cfg["backbone"] + cfg["head"]):
+        if row[2] == "C3":
+            row[2] = "C3Ghost"
+        elif row[2] == "Conv" and i > 0:
+            row[2] = "GhostConv"
+    return cfg
+
+
+# Phase 17's random weights (``variant_variables``): ``random_variables``
+# (the reference init from a seeded torch.Generator); then every BatchNorm's
+# running statistics set to the batch statistics of two seeded synthetic
+# pages at 512 (the init's identity BatchNorms let the features of a
+# 60-layer random graph fade to a constant, and a constant score puts a
+# block on every cell of a grid or on none); then every Detect conv bias
+# drawn from N(0, DETECT_BIAS_STD**2) of the same generator, the objectness
+# biases shifted by DETECT_OBJ_SHIFT, so that the scores' upper tail alone
+# passes the default conf_thresh of 0.4: measured on the CPU at 1024, 19-67
+# blocks a page (V5S_TR) and 65-267 (V5S_GHOST) on phase 4's pages, 30 and
+# 135 on phase 5's.
+DETECT_BIAS_STD, DETECT_OBJ_SHIFT = 2.0, -11.0
+VARIANT_CONF_THRESH = 0.4
+
+
+def variant_variables(cfg: dict, seed: int) -> dict:
+    """Deploy variables (JAX layout) of the three-head net on ``cfg``:
+    the seeded reference init, the BatchNorm statistics of two seeded
+    pages, and the Detect biases spread (above)."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from comic_text_detector_tpu_torch.models.detector import build_inference_model
+    from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8
+    from comic_text_detector_tpu_torch.models.init import random_variables
+    from comic_text_detector_tpu_torch.weights import state_dict_from_jax, variables_from_state_dict
+
+    model = build_inference_model(cfg)
+    model.load_state_dict(state_dict_from_jax(random_variables(seed, cfg), cfg))
+    for mod in model.modules():
+        if isinstance(mod, nn.BatchNorm2d):
+            mod.reset_running_stats()
+            mod.momentum = None  # a cumulative average: the batch's statistics
+    pages = [synthetic_page(np.random.default_rng(100 + i), 700, 500, colour=bool(i)) for i in range(2)]
+    x = torch.stack([letterbox_device_u8(torch.from_numpy(p), 512) for p in pages]).permute(0, 3, 1, 2) / 255.0
+    with torch.no_grad():
+        model.train()(x)
+        model.eval()
+        gen = torch.Generator().manual_seed(seed + 1000)
+        for conv in model.blk_det.model[-1].m:
+            b = torch.randn(conv.bias.shape, generator=gen) * DETECT_BIAS_STD
+            b.view(3, -1)[:, 4] += DETECT_OBJ_SHIFT
+            conv.bias.copy_(b)
+    return variables_from_state_dict(model.state_dict())
+
+
+# Phase 17's bf16 check (``hold_bf16_pieces``).  The card and the CPU sum
+# in float32 in other orders, so on one bf16 input a step with one sum
+# rounds a few elements the other way; after three or four sums in a row
+# the two roundings are independent and the gap is that of two bf16 runs.
+# So every leaf step of a new block (a Conv with its BatchNorm and
+# activation, a Linear, attention's in-projection, attention's scores,
+# softmax and weighted sum) is held alone, on the CPU's bf16 input: its
+# card-vs-CPU gap (relative L2) at most LEAF_RATIO times the CPU's own
+# bf16-vs-float32 gap on that input.  Measured on the CPU on phase 5's page
+# at 1024, a step summed exactly (float64) and rounded at the same places
+# lies 0.000-0.021 of that gap from the CPU's; attention's softmax left in
+# float32 0.544, a step computed in float32 and cast at its end 1.01-1.12.
+# The blocks around the steps (Focus, SPP, C3TR and its transformer, GhostConv,
+# GhostBottleneck, C3Ghost) are held at BLOCK_RATIO: two independent
+# roundings lie about sqrt(2) of one rounding's gap apart, a wrong layout
+# lies the signal's size apart.
+LEAF_RATIO, BLOCK_RATIO = 0.25, 2.0
+
+
+def hold_bf16_pieces(name: str, det_card, det_cpu, page, size: int) -> dict:
+    """Phase 17: hold the card's bf16 against the CPU's, piece by piece, in
+    the first instance of each new block type of ``det_card``'s graph (both
+    detectors bf16, the same weights), each piece on the input it gets in
+    the CPU's run of ``page`` at ``size`` (above).  Returns each piece's
+    ratio of gaps, with the largest leaf and block printed."""
+    import torch
+
+    from comic_text_detector_tpu_torch.models import blocks as B
+    from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8
+
+    new_blocks = (B.Focus, B.SPP, B.C3TR, B.GhostConv, B.C3Ghost)
+    blocks = (B.TransformerBlock, B.TransformerLayer, B.GhostBottleneck) + new_blocks
+    cpu_mods, card_mods = dict(det_cpu.model.named_modules()), dict(det_card.model.named_modules())
+    firsts = {}
+    for n, mod in det_cpu.model.blk_det.model.named_children():
+        firsts.setdefault(type(mod), f"blk_det.model.{n}")
+    roots = [n for t, n in firsts.items() if t in new_blocks]
+    inputs = {}
+    hooks = [cpu_mods[n].register_forward_pre_hook(lambda mod, inp, n=n: inputs.setdefault(n, inp) and None)
+             for n in cpu_mods
+             if any(n == r or n.startswith(r + ".") for r in roots)
+             and isinstance(cpu_mods[n], (B.Conv, B.Linear, B.MultiheadAttention) + blocks)]
+    x = letterbox_device_u8(torch.from_numpy(page), size)[None].permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        det_cpu.model.blk_det(x.to(torch.bfloat16))
+    for h in hooks:
+        h.remove()
+
+    def pieces():  # (label, leaf, CPU callable, card callable, bf16 inputs)
+        for n, inp in inputs.items():
+            cpu, card = cpu_mods[n], card_mods[n]
+            yield n, not isinstance(cpu, blocks + (B.MultiheadAttention,)), cpu, card, inp
+            if isinstance(cpu, B.MultiheadAttention):
+                heads = [cpu.project(t, i) for i, t in enumerate(inp)]
+                heads[0] = heads[0] * (cpu.embed // cpu.num_heads) ** -0.5
+                for i, t in enumerate(inp):
+                    yield f"{n}.project[{i}]", True, lambda t, i=i: cpu.project(t, i), lambda t, i=i: card.project(t, i), (t,)
+                yield f"{n}.attend", True, cpu.attend, card.attend, tuple(heads)
+
+    out, worst = {}, {True: (0.0, ""), False: (0.0, "")}
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                                     allow_tf32=False):
+        for label, leaf, cpu, card, inp in pieces():
+            want, want32 = cpu(*inp), cpu(*(t.float() for t in inp))
+            got = card(*(t.cuda() for t in inp))
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} bf16, {label}: {got.dtype} {tuple(got.shape)} on the card, "
+                                     f"{want.dtype} {tuple(want.shape)} on the CPU")
+            want, want32, got = want.float(), want32.float(), got.float().cpu()
+            gap = float((got - want).norm() / want.norm())
+            base = float((want - want32).norm() / want32.norm())
+            ratio = gap / base if base else (0.0 if gap == 0 else float("inf"))
+            out[label] = {"ratio": ratio, "gap": gap, "bf16_vs_f32": base, "leaf": leaf}
+            worst[leaf] = max(worst[leaf], (ratio, label))
+            if ratio > (LEAF_RATIO if leaf else BLOCK_RATIO):
+                raise AssertionError(f"{name} bf16, {label}: card-vs-CPU gap {gap:.3e} is {ratio:.3f} of the CPU's "
+                                     f"bf16-vs-float32 gap {base:.3e}, over {LEAF_RATIO if leaf else BLOCK_RATIO}")
+    n_leaf = sum(v["leaf"] for v in out.values())
+    phase(f"  {name} bf16 piece by piece on phase 5's page at {size}, card vs CPU on the CPU's bf16 input "
+          f"(gap over the CPU's bf16-vs-float32 gap): {n_leaf} leaf steps, largest {worst[True][0]:.4f} "
+          f"({worst[True][1]}; at most {LEAF_RATIO}); {len(out) - n_leaf} blocks, largest {worst[False][0]:.4f} "
+          f"({worst[False][1]}; at most {BLOCK_RATIO})")
+    return out
+
+
+def variant_phase(pages, small, drive, smi: str, det_flagship, size: int = 1024) -> dict:
+    """Phase 17: the YOLO graph's block variants and the side paths on the
+    card.  ``V5S_TR`` and ``V5S_GHOST`` (random weights, ``variant_variables``)
+    through ``TextDetector`` at ``size``, device refine, packed masks, in
+    float32 and bf16, on ``pages`` through ``drive`` (K1 and K2 must
+    launch), each call repeated bit-identical; in float32 the card against
+    the CPU route on ``small`` (the same blocks within 1 px and refined IoU
+    >= 0.99 on a refined mask that is not empty, as phase 5); in bf16 the
+    new blocks held piece by piece on ``small`` (``hold_bf16_pieces``).  Then
+    ``V5S_TR``'s ``.pt`` (``export_torch_checkpoint``), native file and
+    ``.pt2`` (written by the CLI's ``export``) serving ``pages``
+    bit-identical to the variables-built detector; the CLI's ``detect`` and
+    ``annotate`` with the flagship weights against direct calls; ms a page
+    of the variant detectors and ``det_flagship`` on one page in two
+    turns.  Returns the numbers printed."""
+    import filecmp
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch import cli
+    from comic_text_detector_tpu_torch.constants import REFINEMASK_ANNOTATION
+    from comic_text_detector_tpu_torch.models.convert import export_torch_checkpoint
+    from comic_text_detector_tpu_torch.pipeline import TextDetector, model2annotations
+    from comic_text_detector_tpu_torch.utils.io import NumpyEncoder, imread, imwrite
+
+    kw = dict(input_size=size, refine_backend="device", mask_transfer="packed", conf_thresh=VARIANT_CONF_THRESH)
+    phase(f"  random weights: the reference init from torch.Generator seeds 0 (V5S_TR) and 1 (V5S_GHOST), BatchNorm "
+          f"statistics of two seeded pages, Detect biases from N(0, {DETECT_BIAS_STD}^2) with the objectness ones "
+          f"shifted by {DETECT_OBJ_SHIFT}; conf_thresh {VARIANT_CONF_THRESH}")
+    out, f32 = {}, {}
+    for seed, (name, make) in enumerate((("V5S_TR", v5s_tr_cfg), ("V5S_GHOST", v5s_ghost_cfg))):
+        cfg = make()
+        variables = variant_variables(cfg, seed)
+        for half in (False, True):
+            tag = f"{name} {'bf16' if half else 'f32'}"
+            det = TextDetector(variables=variables, cfg=cfg, half=half, **kw)
+            res, counts = drive(lambda: [det(p) for p in pages], ["K1", "K2"])
+            if not all(same_outputs(a, det(p)) for a, p in zip(res, pages)):
+                raise AssertionError(f"{tag}: a repeat call differs")
+            for p, (mask, refined, blks) in zip(pages, res):
+                if mask.shape != p.shape[:2] or refined.shape != p.shape[:2] or not blks:
+                    raise AssertionError(f"{tag}: page {p.shape} gave masks {mask.shape} and {len(blks)} blocks")
+            if half:  # the whole path's bf16 is chaotic on random weights (PERF.md): held piece by piece
+                cpu = TextDetector(variables=variables, cfg=cfg, half=True, device="cpu", **kw)
+                out[tag] = {"launches": counts, "blocks": [len(r[2]) for r in res],
+                            "pieces": hold_bf16_pieces(name, det, cpu, small, size)}
+                phase(f"  {tag}: {out[tag]['blocks']} blocks a page, repeat calls bit-identical; launches {counts}")
+                continue
+            # the CPU route at 1024 on phase 5's page, float32: at 512 these
+            # random weights leave that page no refined pixel (V5S_GHOST), and
+            # on a larger page one grey pixel at the seg head's edge moved the
+            # refine's components (IoU 0.897 with the same 62 blocks)
+            cpu = TextDetector(variables=variables, cfg=cfg, device="cpu", **kw)
+            got, want = det(small.copy()), cpu(small.copy())
+            iou = mask_iou(got[1], want[1])
+            out[tag] = {"launches": counts, "blocks": [len(r[2]) for r in res], "cpu_route_iou": iou,
+                        "cpu_route_blocks": [len(got[2]), len(want[2])]}
+            phase(f"  {tag}: {out[tag]['blocks']} blocks a page, repeat calls bit-identical; launches {counts}; "
+                  f"card vs CPU route on phase 5's page: {len(got[2])} / {len(want[2])} blocks, refined IoU {iou:.5f} "
+                  f"({int((want[1] > 30).sum())} px set on the CPU)")
+            # phase 5's rule; the blocks matched as sets (their reading order sorts near-ties)
+            a = np.asarray([b.xyxy for b in got[2]], np.int64).reshape(-1, 1, 4)
+            b = np.asarray([b.xyxy for b in want[2]], np.int64).reshape(1, -1, 4)
+            apart = np.abs(a - b).max(axis=2) if a.size and b.size else np.zeros((0, 0))
+            if not got[2] or len(got[2]) != len(want[2]) or apart.min(axis=1).max() > 1 \
+                    or apart.min(axis=0).max() > 1:
+                raise AssertionError(f"{tag}, phase 5's page: blocks {[b.xyxy for b in got[2]]} on the card, "
+                                     f"{[b.xyxy for b in want[2]]} on the CPU")
+            if not (want[1] > 30).any():
+                raise AssertionError(f"{tag}: the CPU route's refined mask is empty, so its IoU says nothing")
+            if iou < 0.99:
+                raise AssertionError(f"{tag}: refined IoU {iou:.5f} between card and CPU, under 0.99")
+            f32[name] = (det, cfg, variables, res)
+
+    det_tr, cfg_tr, vars_tr, base = f32["V5S_TR"]
+    with tempfile.TemporaryDirectory() as d:
+        def serve(fmt: str, make) -> float:
+            t0 = time.perf_counter()
+            det = make()
+            load_s = time.perf_counter() - t0
+            if not all(same_outputs(det(p), b) for p, b in zip(pages, base)):
+                raise AssertionError(f"V5S_TR from its {fmt}: pages differ from the variables-built detector's")
+            out.setdefault("V5S_TR files", {})[fmt] = {"load_s": load_s}
+            phase(f"  V5S_TR from its {fmt}: loaded in {load_s:.2f} s, pages bit-identical; {smi}")
+            return load_s
+
+        pt = os.path.join(d, "v5s_tr.pt")
+        torch.save(export_torch_checkpoint(vars_tr, cfg_tr), pt)
+        load_pt = serve(".pt", lambda: TextDetector(pt, **kw))
+        native = os.path.join(d, "v5s_tr.msgpack")
+        det_tr.save_variables(native)
+        serve("native file", lambda: TextDetector.from_native(native, cfg=cfg_tr, **kw))
+        pt2 = os.path.join(d, "v5s_tr.pt2")
+        t0 = time.perf_counter()
+        cli.main(["export", "--model", pt, "--out", pt2, "--input-size", str(size)])
+        out["V5S_TR files"] = dict(out["V5S_TR files"], cli_export_s=time.perf_counter() - t0)
+        load_pt2 = serve(".pt2 from the CLI's export", lambda: TextDetector(pt2, **kw))
+
+        page_png = os.path.join(d, "page0.png")
+        imwrite(page_png, pages[0])
+        prefix = os.path.join(d, "p0")
+        cli.main(["detect", "--model", WEIGHTS, "--image", page_png, "--out-prefix", prefix,
+                  "--input-size", str(size)])
+        mask, refined, blks = TextDetector(WEIGHTS, input_size=size)(imread(page_png), keep_undetected_mask=True)
+        with open(prefix + "-blocks.json") as f:
+            same_json = json.load(f) == json.loads(json.dumps([b.to_dict() for b in blks], cls=NumpyEncoder))
+        if not (np.array_equal(imread(prefix + "-mask.png", grayscale=True), mask)
+                and np.array_equal(imread(prefix + "-mask-refined.png", grayscale=True), refined) and same_json):
+            raise AssertionError("CLI detect: its files differ from a direct TextDetector call")
+        phase(f"  CLI detect on a PNG page: -mask.png, -mask-refined.png and -blocks.json ({len(blks)} blocks) "
+              "equal to a direct TextDetector call")
+
+        ann_in, ann_cli, ann_direct = (os.path.join(d, n) for n in ("ann_in", "ann_cli", "ann_direct"))
+        for n in (ann_in, ann_cli, ann_direct):
+            os.makedirs(n)
+        for i, p in enumerate(list(pages) + [small]):
+            imwrite(os.path.join(ann_in, f"page{i}.png"), p)
+        cli.main(["annotate", "--model", WEIGHTS, "--img-dir", ann_in, "--save-dir", ann_cli, "--save-json",
+                  "--input-size", str(size)])
+        det_ann = TextDetector(WEIGHTS, input_size=size)
+        model2annotations(det_ann, ann_in, ann_direct, save_json=True, progress=False)
+        names = sorted(os.listdir(ann_direct))
+        if sorted(os.listdir(ann_cli)) != names or len(names) < 4 * (len(pages) + 1):
+            raise AssertionError(f"CLI annotate wrote {sorted(os.listdir(ann_cli))}, the direct call {names}")
+        for n in names:
+            a, b = os.path.join(ann_cli, n), os.path.join(ann_direct, n)
+            same = np.array_equal(imread(a), imread(b)) if n.endswith(".png") else filecmp.cmp(a, b, shallow=False)
+            if not same:
+                raise AssertionError(f"CLI annotate: {n} differs from model2annotations' direct call")
+        for i in range(len(pages) + 1):
+            img = imread(os.path.join(ann_in, f"page{i}.png"))
+            _, refined, _ = det_ann(img, refine_mode=REFINEMASK_ANNOTATION, keep_undetected_mask=True)
+            if not np.array_equal(imread(os.path.join(ann_cli, f"mask-page{i}.png"), grayscale=True), refined):
+                raise AssertionError(f"CLI annotate: mask-page{i}.png differs from a direct TextDetector call")
+        phase(f"  CLI annotate on {len(pages) + 1} PNG pages: {len(names)} files equal to model2annotations' direct call, the "
+              "masks to direct TextDetector calls")
+
+    ms = {"flagship": [], "V5S_TR": [], "V5S_GHOST": []}
+    for name in ("flagship", "V5S_TR", "V5S_GHOST", "V5S_GHOST", "V5S_TR", "flagship"):
+        ms[name].append(page_time_of(det_flagship if name == "flagship" else f32[name][0], pages[:1]))
+    # the net alone (run_net on page 0's letterbox), apart from the refine,
+    # whose work grows with the random weights' block count
+    from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8
+    from comic_text_detector_tpu_torch.pipeline.detector import run_net
+
+    lb = letterbox_device_u8(torch.from_numpy(pages[0]).cuda(), size)[None]
+    with torch.no_grad():
+        net_ms = {name: cuda_ms(lambda m=(det_flagship if name == "flagship" else f32[name][0]).model: run_net(m, lb), 10)
+                  for name in ms}
+    out.update(ms_per_page_f32=ms, net_ms_f32=net_ms,
+               blocks_per_page={"flagship": [len(det_flagship(p)[2]) for p in pages],
+                                **{n: out[f"{n} f32"]["blocks"] for n in ("V5S_TR", "V5S_GHOST")}})
+    print(f"single page, f32, {size}, device refine, packed: ms on phase 4's page 0 in turns " + ", ".join(
+        f"{k} {v}" for k, v in ms.items()) + "; net alone ms " + ", ".join(
+        f"{k} {v:.2f}" for k, v in net_ms.items()) + f"; blocks a page {out['blocks_per_page']}; V5S_TR load s: "
+        f".pt {load_pt:.2f}, .pt2 {load_pt2:.2f}; {smi}", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1689,7 +2049,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/16 device")
+    phase("1/17 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1700,13 +2060,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/16 build kernels (nvcc, one per source, in parallel)")
+    phase("2/17 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/16 kernels vs plain versions, bit for bit")
+    phase("3/17 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -1777,7 +2137,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/16 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/17 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -1957,7 +2317,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/16 output check: card vs the port's CPU route")
+    phase("5/17 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -1995,7 +2355,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/16 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/17 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -2044,7 +2404,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/16 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/17 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -2065,7 +2425,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/16 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/17 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -2207,7 +2567,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/16 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/17 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -2238,10 +2598,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/16 K5 vs its plain version, bit for bit")
+    phase("10/17 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/16 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/17 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2319,7 +2679,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/16 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/17 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
@@ -2573,10 +2933,14 @@ def main() -> None:
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     train = train_phases(dev, smi, counters)
     print(json.dumps({"train": train, "card": smi}), flush=True)
-    phase("16/16 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
+    phase("16/17 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
           "device refine, packed masks")
     files = model_files_phase(det_dev, pages, drive, path_1024, smi)
     print(json.dumps({"model_files": files, "card": smi}), flush=True)
+    phase("17/17 the YOLO graph's block variants (V5S_TR, V5S_GHOST) through TextDetector at 1024, device refine, "
+          "packed masks; their model files; the CLI")
+    variants = variant_phase(pages, small, drive, smi, det_dev)
+    print(json.dumps({"variants": variants, "card": smi}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -37,7 +37,7 @@ class Detect(nn.Module):
         super().__init__()
         self.nc, self.no = nc, nc + 5
         self.na = len(anchors[0]) // 2
-        self.strides = tuple(float(s) for s in strides)
+        self.strides = tuple(float(s) for s in strides[:len(anchors)])  # one a level
         a = torch.tensor(anchors, dtype=torch.float32).view(len(anchors), -1, 2)
         self.register_buffer("anchors", a / torch.tensor(self.strides).view(-1, 1, 1))
         self.m = nn.ModuleList(tnn.Conv2d(c, self.no * self.na, 1) for c in ch)
@@ -69,7 +69,14 @@ class Detect(nn.Module):
 
 
 def _build_layer(spec, act: str) -> nn.Module:
+    """The module of one LayerSpec, with the JAX package's argument
+    unpacking (its ``models/yolo.py::_build_layer``).  A module-level repeat
+    count above 1 (``[-1, 2, "Bottleneck", ...]``: the reference builds an
+    ``nn.Sequential`` of that many) raises, as does an unknown module."""
     m, a = spec.module, spec.args
+    if spec.repeats > 1:
+        raise ValueError(f"layer {spec.index} ({m}): a module-level repeat count of {spec.repeats} is not "
+                         "supported (the reference stacks that many modules in an nn.Sequential)")
     if m == "Conv":  # (c1, c2, k[, s[, p]])
         k = a[2] if len(a) > 2 else 1
         s = a[3] if len(a) > 3 else 1
@@ -80,15 +87,41 @@ def _build_layer(spec, act: str) -> nn.Module:
         return blocks.C3(a[0], a[1], n=a[2], shortcut=shortcut, act=act)
     if m == "SPPF":
         return blocks.SPPF(a[0], a[1], k=a[2] if len(a) > 2 else 5, act=act)
+    if m == "SPP":
+        return blocks.SPP(a[0], a[1], k=tuple(a[2]) if len(a) > 2 else (5, 9, 13), act=act)
+    if m == "Focus":
+        return blocks.Focus(a[0], a[1], a[2] if len(a) > 2 else 1, act=act)
+    if m == "Bottleneck":
+        return blocks.Bottleneck(a[0], a[1], act=act)
+    if m == "DWConv":  # groups = gcd(c1, c2) (reference common.py:52)
+        k = a[2] if len(a) > 2 else 1
+        s = a[3] if len(a) > 3 else 1
+        return blocks.Conv(a[0], a[1], k, s, g=math.gcd(a[0], a[1]), act=act)
+    if m == "GhostConv":
+        k = a[2] if len(a) > 2 else 1
+        s = a[3] if len(a) > 3 else 1
+        g = a[4] if len(a) > 4 else 1
+        return blocks.GhostConv(a[0], a[1], k, s, g=g, act=act)
+    if m == "GhostBottleneck":
+        k = a[2] if len(a) > 2 else 3
+        s = a[3] if len(a) > 3 else 1
+        return blocks.GhostBottleneck(a[0], a[1], k, s, act=act)
+    if m in ("BottleneckCSP", "C3TR", "C3Ghost"):  # (c1, c2, n[, shortcut])
+        shortcut = a[3] if len(a) > 3 else True
+        return getattr(blocks, m)(a[0], a[1], n=a[2], shortcut=shortcut, act=act)
+    if m == "C3SPP":
+        return blocks.C3SPP(a[0], a[1], k=tuple(a[2]) if len(a) > 2 else (5, 9, 13), act=act)
+    if m == "BatchNorm2d":
+        return tnn.BatchNorm2d(a[0], eps=1e-3, momentum=0.03)
+    if m == "Contract":
+        return blocks.Contract(a[0])
+    if m == "Expand":
+        return blocks.Expand(a[0])
     if m == "Upsample":
         return blocks.Upsample()
     if m == "Concat":
         return blocks.Concat()
-    raise NotImplementedError(
-        f"graph module {m!r}: the port builds the shipped yolov5s graph "
-        "(Conv, C3, SPPF, Upsample, Concat, Detect); other block variants "
-        "come with the weight-ingestion slice"
-    )
+    raise ValueError(f"layer {spec.index}: unsupported graph module {m!r}")
 
 
 class YoloGraph(nn.Module):

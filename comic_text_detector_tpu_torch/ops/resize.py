@@ -128,6 +128,12 @@ def letterbox_device_u8(img_u8: torch.Tensor, new_shape: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, dw, 0, dh))
 
 
+def letterbox_device(img_u8: torch.Tensor, new_shape: int) -> torch.Tensor:
+    """uint8 (H, W, 3) -> float32 (new, new, 3) in [0, 1]: the cv2-exact
+    letterbox of :func:`letterbox_device_u8`, then / 255."""
+    return letterbox_device_u8(img_u8, new_shape).to(torch.float32) / 255.0
+
+
 def resize_bilinear_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     """Host bilinear resize matching cv2.resize(..., INTER_LINEAR): bit-exact
     for uint8, float arithmetic otherwise."""

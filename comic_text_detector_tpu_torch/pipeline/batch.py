@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from comic_text_detector_tpu_torch import constants as C
+from comic_text_detector_tpu_torch.models.init import random_variables
 from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
 from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
@@ -95,7 +96,15 @@ class BatchTextDetector:
         self.nms_thresh = nms_thresh
         self.db_thresh = C.DEFAULT_DB_THRESH
         self.box_thresh = C.DEFAULT_BOX_THRESH
-        self.model = build_model(variables, None, cfg, act, half, self.device, input_size)
+        dtype = torch.bfloat16 if half else torch.float32
+        self.model = build_model(variables, None, cfg, act, dtype, self.device, input_size)
+
+    @classmethod
+    def random_init(cls, batch_size: int = 4, input_size: int = C.DEFAULT_INPUT_SIZE, seed: int = 0,
+                    device: str = "cuda", **kw) -> "BatchTextDetector":
+        """A batch detector of seeded random weights
+        (``models/init.py::random_variables``)."""
+        return cls(random_variables(seed), batch_size=batch_size, input_size=input_size, device=device, **kw)
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
         """Host page -> device, through a pinned buffer on the card (the

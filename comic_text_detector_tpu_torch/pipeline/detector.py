@@ -29,7 +29,7 @@ from comic_text_detector_tpu_torch import constants as C
 from comic_text_detector_tpu_torch.config import YOLOV5S_CFG
 from comic_text_detector_tpu_torch.export.program import load_exported, read_sidecar
 from comic_text_detector_tpu_torch.models.detector import TextDetBase, build_inference_model
-from comic_text_detector_tpu_torch.models.onnx_ingest import convert_onnx_checkpoint
+from comic_text_detector_tpu_torch.models.init import random_variables
 from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
 from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
@@ -37,6 +37,7 @@ from comic_text_detector_tpu_torch.ops.nms import nms_single
 from comic_text_detector_tpu_torch.ops.refine import refine_page
 from comic_text_detector_tpu_torch.ops.resize import (
     letterbox_device_u8,
+    letterbox_np,
     letterbox_shape,
     resize_bilinear_fast,
     resize_cv2exact_u8,
@@ -51,12 +52,31 @@ from comic_text_detector_tpu_torch.utils.imgproc import (
     intersect_area,
     threshold_binary,
 )
-from comic_text_detector_tpu_torch.weights import (
-    load_npz,
-    load_reference_pt,
-    state_dict_from_jax,
-    variables_from_state_dict,
-)
+from comic_text_detector_tpu_torch.weights import load_model_file, state_dict_from_jax, variables_from_state_dict
+
+
+def preprocess_img(img: np.ndarray, input_size=(1024, 1024), to_tensor: bool = True):
+    """Host preprocessing of the reference's free function
+    (inference.py:72-83): cv2-exact letterbox and, with ``to_tensor``,
+    (1, S, S, 3) float32 / 255; returns (img_in, ratio, dw, dh).  The net
+    reads BGR, as the page comes."""
+    if isinstance(input_size, int):
+        input_size = (input_size, input_size)
+    img_in, ratio, (dw, dh) = letterbox_np(img, input_size)
+    if to_tensor:
+        img_in = img_in[None].astype(np.float32) / 255.0
+    return img_in, ratio, int(dw), int(dh)
+
+
+def postprocess_mask(mask, thresh=None) -> np.ndarray:
+    """Squeeze, threshold where ``thresh`` is given, x255 as uint8
+    (reference inference.py:85-99)."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    m = np.asarray(mask).squeeze()
+    if thresh is not None:
+        m = m > thresh
+    return (m * 255).astype(np.uint8)
 
 
 def postprocess_yolo(rows: np.ndarray, count: int, resize_ratio):
@@ -82,46 +102,33 @@ def scale_lines(dboxes, dscores, dvalid, size: int, box_thresh: float, resize_ra
     return lines.astype(np.int32)
 
 
-def build_model(variables, model_path: Optional[str], cfg: Optional[dict], act: str, half: bool,
+def build_model(variables, model_path: Optional[str], cfg: Optional[dict], act: str, dtype: torch.dtype,
                 device: torch.device, input_size: int):
-    """The three-head net with its weights, on ``device``, computing in bf16
-    when ``half`` (float32 parameters either way).  The weights come from
-    ``variables`` (JAX layout) or ``model_path``: ``.npz`` (the compact
-    checkpoint), ``.onnx`` (the reference's deploy file), ``.pt2`` (a
-    program from ``export/program.py::export_program``, which stands in for
-    the module; its act, dtype and ``input_size`` must be these) or a
-    reference ``.pt``."""
+    """The three-head net with its weights, on ``device``, computing in
+    ``dtype`` (float32 parameters whatever it is).  The weights come from
+    ``variables`` (JAX layout) or ``model_path``: a ``.pt2`` (a program
+    from ``export/program.py::export_program``, which stands in for the
+    module; its act, dtype and ``input_size`` must be these) or a file of
+    weights that ``weights.py::load_model_file`` reads (``.npz``, ``.onnx``,
+    a reference ``.pt``)."""
     path = None if model_path is None else str(model_path)
     if variables is not None:
         model_cfg = cfg or YOLOV5S_CFG
         state = state_dict_from_jax(variables, model_cfg)
     elif path is None:
         raise ValueError("provide model_path or variables")
-    elif path.endswith(".stablehlo"):
-        raise ValueError(
-            f"{path}: .stablehlo is the JAX package's deploy artifact (jax.export); the port's is a "
-            "torch.export program, .pt2 (comic_text_detector_tpu_torch.export.export_program)"
-        )
     elif path.endswith(".pt2"):
         meta = read_sidecar(path)
-        dtype = "bfloat16" if half else "float32"
-        if (meta["act"], meta["dtype"]) != (act, dtype):
+        dtype_name = str(dtype).removeprefix("torch.")
+        if (meta["act"], meta["dtype"]) != (act, dtype_name):
             raise ValueError(f"{path} computes with act {meta['act']!r} in {meta['dtype']}, "
-                             f"not act {act!r} in {dtype}")
+                             f"not act {act!r} in {dtype_name}")
         if meta["input"][2] != input_size:
             raise ValueError(f"{path} was exported at input size {meta['input'][2]} (its sidecar "
                              f"{path}.json), not {input_size}")
         return load_exported(path, device)
-    elif path.endswith(".npz"):
-        model_cfg = cfg or YOLOV5S_CFG
-        state = state_dict_from_jax(load_npz(path), model_cfg)
-    elif path.endswith(".onnx"):
-        model_cfg = cfg or YOLOV5S_CFG
-        state, _ = convert_onnx_checkpoint(path, model_cfg)
     else:
-        state, ckpt_cfg = load_reference_pt(path)
-        model_cfg = cfg or ckpt_cfg or YOLOV5S_CFG
-    dtype = torch.bfloat16 if half else torch.float32
+        state, model_cfg = load_model_file(path, cfg)
     model = build_inference_model(model_cfg, act=act, dtype=dtype)
     model.load_state_dict(state, strict=True)
     return model.to(device)
@@ -149,8 +156,12 @@ class TextDetector:
         mask, mask_refined, blk_list = det(img_bgr)     # uint8 BGR page
 
     Runs on ``device="cuda"``; ``device="cpu"`` must be asked for.
-    ``half=True`` runs the net in bf16.  ``save_variables`` /
-    ``from_native`` write and read the native (flax msgpack) format.
+    ``half=True`` runs the net in bf16, as does ``compute_dtype=
+    torch.bfloat16`` (which, where given, decides).  ``cfg`` is the YOLO
+    graph's (a checkpoint's embedded cfg; ``YOLOV5S_CFG`` by default).
+    ``save_variables`` / ``from_native`` write and read the native (flax
+    msgpack) format; ``random_init`` gives a detector of seeded random
+    weights.
     """
 
     lang_list = C.LANG_LIST
@@ -168,6 +179,7 @@ class TextDetector:
         act: str = "leaky",
         variables=None,
         cfg: Optional[dict] = None,
+        compute_dtype: Optional[torch.dtype] = None,
         refine_backend: str = "host",
         mask_transfer: str = "grey",
     ):
@@ -187,7 +199,21 @@ class TextDetector:
         self.box_thresh = C.DEFAULT_BOX_THRESH
         self.unclip_ratio = C.DEFAULT_UNCLIP_RATIO
 
-        self.model = build_model(variables, model_path, cfg, act, half, self.device, input_size)
+        if compute_dtype is None:
+            compute_dtype = torch.bfloat16 if half else torch.float32
+        self.compute_dtype = compute_dtype
+        self.model = build_model(variables, model_path, cfg, act, compute_dtype, self.device, input_size)
+
+    @classmethod
+    def random_init(cls, input_size: int = C.DEFAULT_INPUT_SIZE, act: str = "leaky", seed: int = 0,
+                    device: str = "cuda", **kw) -> "TextDetector":
+        """A detector of random weights on the shipped graph (tests,
+        architecture work): ``models/init.py::apply_reference_init`` from
+        a ``torch.Generator`` seeded with ``seed`` (He-normal kernels, unit
+        BatchNorm scale, zero shifts and biases; running mean 0, variance
+        1).  The values are not the JAX package's (another RNG and
+        recipe); the shapes and dtypes are."""
+        return cls(variables=random_variables(seed), input_size=input_size, act=act, device=device, **kw)
 
     def save_variables(self, path: str) -> None:
         """Write the weights in the native format, the bytes the JAX

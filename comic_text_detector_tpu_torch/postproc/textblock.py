@@ -638,3 +638,25 @@ def group_output(blks, lines, im_w: int, im_h: int, mask=None,
 
     return final_blk_list
 
+
+
+def visualize_textblocks(canvas: np.ndarray, blk_list: List[TextBlock]) -> np.ndarray:
+    """Draw block boxes and line quads on a BGR canvas, in place (the
+    reference's debug drawing, inference.py).  Draws with Pillow, imported
+    here: it cannot run where Pillow is not installed, and Pillow is not
+    among the packages the card's machine is stated to have."""
+    from PIL import Image, ImageDraw
+
+    img = Image.fromarray(canvas[:, :, ::-1])
+    draw = ImageDraw.Draw(img)
+    lw = max(round(sum(canvas.shape) / 2 * 0.003), 2)
+    for ii, blk in enumerate(blk_list):
+        bx1, by1, bx2, by2 = blk.xyxy
+        draw.rectangle([bx1, by1, bx2, by2], outline=(127, 255, 127), width=lw)
+        for jj, line in enumerate(blk.lines_array(dtype=np.int32)):
+            draw.polygon([tuple(p) for p in line], outline=(255, 127, 0), width=2)
+            draw.text(tuple(line[0]), str(jj), fill=(0, 127, 255))
+        draw.text((bx1, by1 + lw + 2), str(ii), fill=(255, 127, 127))
+        draw.text((int((bx1 + bx2) / 2), int((by1 + by2) / 2)), str(blk.angle), fill=(255, 127, 127))
+    canvas[:] = np.asarray(img)[:, :, ::-1]
+    return canvas

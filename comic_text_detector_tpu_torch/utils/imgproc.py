@@ -10,7 +10,7 @@ Own copy of the JAX package's ``utils/imgproc.py``.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
@@ -37,6 +37,44 @@ def xywh2xyxypoly(xywh: np.ndarray, to_int: bool = True) -> np.ndarray:
     poly[:, [2, 4]] += xywh[:, [2]]
     poly[:, [5, 7]] += xywh[:, [3]]
     return poly.astype(np.int64) if to_int else poly
+
+
+def xyxy2yolo(xyxy, w: int, h: int) -> Optional[np.ndarray]:
+    """(N, 4) pixel xyxy boxes -> (N, 4) YOLO (cx, cy, w, h) normalised by
+    the page's ``w`` and ``h``; None for no boxes."""
+    if xyxy is None or len(xyxy) == 0:
+        return None
+    xyxy = np.asarray(xyxy, np.float64)
+    if xyxy.ndim == 1:
+        xyxy = xyxy[None]
+    yolo = xyxy.copy()
+    yolo[:, [0, 2]] /= w
+    yolo[:, [1, 3]] /= h
+    yolo[:, [2, 3]] -= yolo[:, [0, 1]]
+    yolo[:, [0, 1]] += yolo[:, [2, 3]] / 2
+    return yolo
+
+
+def yolo_xywh2xyxy(xywh: np.ndarray, w: int, h: int, to_int: bool = True) -> Optional[np.ndarray]:
+    """Inverse of :func:`xyxy2yolo`: normalised (cx, cy, w, h) -> pixel
+    xyxy, int64 with ``to_int``; None for no boxes."""
+    if xywh is None or len(xywh) == 0:
+        return None
+    xywh = np.asarray(xywh, np.float64)
+    if xywh.ndim == 1:
+        xywh = xywh[None]
+    xywh = xywh.copy()
+    xywh[:, [0, 2]] *= w
+    xywh[:, [1, 3]] *= h
+    xywh[:, [0, 1]] -= xywh[:, [2, 3]] / 2
+    xywh[:, [2, 3]] += xywh[:, [0, 1]]
+    return xywh.astype(np.int64) if to_int else xywh
+
+
+def get_yololabel_strings(clslist, labellist) -> str:
+    """YOLO label file text: one ``cls cx cy w h`` line a box."""
+    lines = [str(int(c)) + " " + " ".join(str(e) for e in xywh) for c, xywh in zip(clslist, labellist)]
+    return "\n".join(lines)
 
 
 def rotate_polygons(center, polygons: np.ndarray, rotation: float, new_center=None, to_int: bool = True):

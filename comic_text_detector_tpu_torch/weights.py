@@ -14,6 +14,8 @@
   whose keys already have the port's layout, through
   :func:`state_dict_from_parts` (which also takes the ONNX ingestion's
   state dicts).
+* :func:`load_model_file` maps a model file's suffix to its reader and
+  returns the state dict with the cfg it serves.
 * The train trees: :func:`train_state_dict_from_jax` /
   :func:`variables_from_state_dict` carry the JAX ``TextDetTrain``
   variables (``backbone``, ``seg_net``, ``dbnet``) and ``BlkDetTrain``
@@ -69,6 +71,8 @@ def _torch_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
             out += ["model", t[len("model_"):]]
         elif t.startswith("m_"):
             out += ["m", t[len("m_"):]]
+        elif t.startswith("tr_"):
+            out += ["tr", t[len("tr_"):]]  # TransformerBlock's layers
         elif t.startswith("seq") and t[3:].isdigit() and prev in _SEQ_PARENTS:
             out.append(t[3:])
         elif t == "c3" and prev == "down_conv1":
@@ -105,10 +109,12 @@ def export_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any]) -> Di
                     sd[key] = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))  # -> (I, O, kh, kw)
                 else:
                     sd[key] = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-            elif k in ("kernel", "scale"):
+            elif k in ("kernel", "scale"):  # a 2-D kernel is TorchLinear's, already (out, in)
                 sd[prefix + ".weight"] = arr
             elif k == "bias":
                 sd[prefix + ".bias"] = arr
+            elif k in ("in_proj_weight", "in_proj_bias"):  # attention's packed projection
+                sd[f"{prefix}.{k}"] = arr
             else:
                 raise ValueError(f"unhandled param leaf {path + (k,)}")
 
@@ -136,7 +142,7 @@ def detect_anchors(spec) -> Tuple[str, torch.Tensor]:
     key and anchors / strides, as the reference's ``.pt`` holds it."""
     detect_idx = max(ls.index for ls in spec.layers)
     anchors = torch.tensor(spec.anchors, dtype=torch.float32).view(len(spec.anchors), -1, 2)
-    strides = torch.tensor(spec.strides, dtype=torch.float32).view(-1, 1, 1)
+    strides = torch.tensor(spec.strides[:len(spec.anchors)], dtype=torch.float32).view(-1, 1, 1)
     return f"blk_det.model.{detect_idx}.anchors", anchors / strides
 
 
@@ -167,7 +173,7 @@ def _flax_path(tokens: Tuple[str, ...]) -> Tuple[str, ...]:
         t = tokens[i]
         nxt = tokens[i + 1] if i + 1 < len(tokens) else None
         prev = out[-1] if out else None
-        if t in ("model", "m") and nxt is not None and nxt.isdigit():
+        if t in ("model", "m", "tr") and nxt is not None and nxt.isdigit():
             out.append(f"{t}_{nxt}")
             i += 2
             continue
@@ -225,8 +231,8 @@ def variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict:
             else:
                 arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
             put(params, path, "kernel", np.ascontiguousarray(arr))
-        elif leaf == "weight":
-            put(params, path, "kernel", arr)
+        elif leaf in ("weight", "in_proj_weight", "in_proj_bias"):  # a Linear's (out, in) kernel; attention
+            put(params, path, "kernel" if leaf == "weight" else leaf, arr)
         else:
             raise ValueError(f"unhandled state dict entry {key}")
     return {"params": params, "batch_stats": stats}
@@ -350,3 +356,29 @@ def load_reference_pt(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict
     blk = ckpt["blk_det"]
     cfg = blk.get("cfg") if isinstance(blk, Mapping) else None
     return state_dict_from_parts(ckpt, cfg), cfg
+
+
+def load_model_file(path: str, cfg: Optional[dict] = None) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A file of weights -> (the port's state dict, the yolo cfg it serves):
+    ``.npz`` (the compact checkpoint), ``.onnx`` (the reference's deploy
+    file) or a reference ``.pt``.  The cfg is ``cfg`` where given, else the
+    ``.pt``'s embedded one, else ``YOLOV5S_CFG``.  Exported programs
+    (``.pt2``, ``.stablehlo``) hold no weights to read and are refused."""
+    path = str(path)
+    if path.endswith(".stablehlo"):
+        raise ValueError(
+            f"{path}: .stablehlo is the JAX package's deploy artifact (jax.export); the port's is a "
+            "torch.export program, .pt2 (comic_text_detector_tpu_torch.export.export_program)"
+        )
+    if path.endswith(".pt2"):
+        raise ValueError(f"{path} is an exported program (export/program.py::load_exported), not weights")
+    if path.endswith(".npz"):
+        model_cfg = cfg or YOLOV5S_CFG
+        return state_dict_from_jax(load_npz(path), model_cfg), model_cfg
+    if path.endswith(".onnx"):
+        from comic_text_detector_tpu_torch.models.onnx_ingest import convert_onnx_checkpoint  # it imports this module
+
+        model_cfg = cfg or YOLOV5S_CFG
+        return convert_onnx_checkpoint(path, model_cfg)[0], model_cfg
+    state, ckpt_cfg = load_reference_pt(path)
+    return state, cfg or ckpt_cfg or YOLOV5S_CFG

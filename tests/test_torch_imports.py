@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of
 ``comic_text_detector_tpu_torch`` loads no JAX, flax, optax, msgpack,
-onnx, onnxscript, PIL or cv2 and no module of the JAX package.  Runs in a
+onnx, onnxscript, PIL, cv2 or yaml and no module of the JAX package.  Runs in a
 fresh interpreter, since this test process imports JAX for the parity
 tests.  The kernel and decode modules
 are named, so that a module missing from the walk fails the test."""
@@ -20,7 +20,7 @@ import comic_text_detector_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "onnx", "onnxscript", "PIL", "cv2",
+banned = ("jax", "jaxlib", "flax", "optax", "msgpack", "onnx", "onnxscript", "PIL", "cv2", "yaml",
           "comic_text_detector_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print("MODULES", len(names))
@@ -45,9 +45,23 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
                    "training.metrics", "training.seg_trainer", "training.db_trainer", "data.augment",
                    "data.maps", "data.seg_dataset", "data.db_dataset", "utils.io", "utils.log",
                    "training.yolo_loss", "training.yolo_trainer", "data.blk_dataset", "utils.serialization",
-                   "models.onnx_ingest", "models.convert", "export.program", "export.onnx"):
+                   "models.onnx_ingest", "models.convert", "export.program", "export.onnx", "cli",
+                   "pipeline.annotations", "utils.viz", "utils.config", "utils.profiling", "data.render",
+                   "models.init"):
         assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
+
+
+def test_inference_loads_no_trainer():
+    """Serving (the pipelines and the CLI) needs none of ``training/``:
+    random weights come from ``models/init.py``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = ("import sys, comic_text_detector_tpu_torch.pipeline, comic_text_detector_tpu_torch.cli; "
+             "print(','.join(sorted(m for m in sys.modules if m.startswith('comic_text_detector_tpu_torch.training'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"importing the pipelines loaded {out.stdout.strip()}"
 
 
 def test_resolve_device():

@@ -44,7 +44,8 @@ from comic_text_detector_tpu.training.init import bilinear_kernel as jax_bilinea
 from comic_text_detector_tpu_torch.models.detector import build_train_model, damp_output_biases, init_variables
 from comic_text_detector_tpu_torch.training import checkpoint, losses
 from comic_text_detector_tpu_torch.training.db_trainer import graft_db_variables
-from comic_text_detector_tpu_torch.training.init import apply_reference_init, bilinear_kernel
+from comic_text_detector_tpu_torch.models.init import apply_reference_init
+from comic_text_detector_tpu_torch.training.init import bilinear_kernel
 from comic_text_detector_tpu_torch.training.steps import (
     build_optimizer,
     create_db_train_state,
