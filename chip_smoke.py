@@ -169,12 +169,32 @@ before it starts so a stall shows where it stopped:
    ``annotate`` on a directory of 4 PNG pages (flagship weights) against
    direct calls; ms a page of both variant detectors and the flagship's
    on one page in two turns, the net alone, and the load seconds of the
-   ``.pt`` and the ``.pt2``.
+   ``.pt`` and the ``.pt2``;
+18. data parallelism (``mesh_phase``): ``BatchTextDetector(mesh=
+   make_mesh(devices=[cuda:0, cuda:0]))`` (two cards where there are two)
+   with the flagship weights, batch 4, input 1024, device refine, packed
+   masks on phase 6's 12 pages, float32 bit-identical to phase 8's stream
+   without a mesh and bf16 with phase 6's block counts and refined IoU
+   >= 0.98, its launches a page and pages/s; two ranks on cuda:0 over gloo
+   (``parallel/mesh.py::spawn``) for the seg, DB (``loss: bce``) and YOLO
+   steps at imgsz 512, global batch 8, full width from the flagship
+   weights: one step against the one-process step on the card (loss terms
+   within 1e-5 relative, trainable gradients within 1e-4 in relative L2,
+   BatchNorm running statistics within 1e-5), the ranks' parameters
+   bit-identical after 3 steps; then ``seg_trainer.train``,
+   ``db_trainer.train`` and ``yolo_trainer.train`` with ``mesh=`` for 2
+   steps each, rank 0 alone writing the checkpoints and its DB eval
+   launching K2 and K6 binarize (rank 1 none); and the YOLO step through
+   the mesh route on NCCL at world 1, held to the one-process step with
+   the same tolerances and bit-identical over two runs.  A rank that
+   raises, or a join past its time limit, fails the script.
 
 Prints ``{"train": {...}}`` (phases 13-15), ``{"model_files": {...}}``
-(phase 16), ``{"variants": {...}}`` (phase 17) and ``{"kernels": [...]}`` on
-lines of their own (every kernel with its event ``ms`` and its
-``device_ms`` a launch on the card's clock), and as its last line
+(phase 16), ``{"variants": {...}}`` (phase 17), ``{"mesh": {...}}`` (phase
+18) and ``{"kernels": [...]}`` on lines of their own (every kernel with its
+event ``ms`` and its ``device_ms`` a launch on the card's clock, K1-K3 and
+K6 also with their launches on phase 18's mesh stream, K2 and K6 binarize
+with the mesh DB eval's), the whole script's seconds, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, and the exit code is
 not 0; without a CUDA device, or outside a checkout, it exits 1 before
 printing any result.
@@ -1430,7 +1450,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
                 "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
         results = {}
 
-        phase(f"13/17 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        phase(f"13/18 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
         hyp_seg = {"data": data, "model": {"act": "leaky"},
                    "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
                              "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
@@ -1467,7 +1487,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
         unet_vars = variables_from_state_dict(st.model.state_dict())
         del st, seg_out
 
-        phase(f"14/17 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        phase(f"14/18 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
         db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
         hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
                   "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
@@ -1565,7 +1585,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
               f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
         del st, db_out
 
-        phase(f"15/17 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
+        phase(f"15/18 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
               "in train mode, flagship_r2's blk_det")
         results["yolo"] = yolo_phase(dev, smi, counters, work, train_dir, val_dir, deploy, imgsz, bs)
         return results
@@ -2034,7 +2054,272 @@ def variant_phase(pages, small, drive, smi: str, det_flagship, size: int = 1024)
     return out
 
 
+MESH_KINDS = ("seg", "db", "yolo")
+DB_KEYS = ("imgs", "shrink_map", "shrink_mask", "threshold_map", "threshold_mask")
+
+
+def mesh_state(kind: str, dev):
+    """Phase 18: a train state of ``kind`` from the flagship weights on
+    ``dev``, with the optimizer of phases 13-15."""
+    from comic_text_detector_tpu_torch.training import seg_trainer, yolo_trainer
+    from comic_text_detector_tpu_torch.training.steps import (
+        Optimizer, create_db_train_state, create_seg_train_state, create_yolo_train_state,
+    )
+    from comic_text_detector_tpu_torch.weights import blk_train_from_deploy, load_npz, train_from_deploy
+
+    deploy = load_npz(WEIGHTS)
+    if kind == "seg":
+        model = seg_trainer.build_model(train_from_deploy(deploy), "leaky", with_db=False).to(dev)
+        return create_seg_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.9))
+    if kind == "db":
+        model = seg_trainer.build_model(train_from_deploy(deploy, with_db=True), "leaky", with_db=True).to(dev)
+        return create_db_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.937))
+    model = yolo_trainer.build_model(blk_train_from_deploy(deploy)).to(dev)
+    return create_yolo_train_state(model, lambda p: Optimizer(p, "adam", 1e-4, momentum=0.9))
+
+
+def mesh_step(kind: str, state, batch: dict, mesh=None) -> dict:
+    """One train step of ``kind`` on the global ``batch`` (NumPy): under
+    ``mesh`` each rank takes its block, without it the whole batch goes to
+    the state's device.  Returns the loss terms and the trainable
+    gradients and BatchNorm running statistics, each flattened."""
+    import torch
+
+    from comic_text_detector_tpu_torch.training.steps import db_train_step, seg_train_step, yolo_train_step
+
+    dev = next(state.model.parameters()).device
+    t = {k: torch.from_numpy(v) if mesh is not None else torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if kind == "seg":
+        m = seg_train_step(state, t["imgs"], t["masks"], mesh=mesh)
+    elif kind == "db":
+        m = db_train_step(state, {k: t[k] for k in DB_KEYS}, use_bce=True, mesh=mesh)
+    else:
+        m = yolo_train_step(state, t["imgs"], t["labels"], t["label_mask"], mesh=mesh)
+    grads = torch.cat([p.grad.reshape(-1) for p in state.optimizer.params if p.grad is not None])
+    stats = torch.cat([b.reshape(-1).float() for name in state.trainable
+                       for k, b in getattr(state.model, name).named_buffers() if "running" in k])
+    return {"terms": {k: float(v) for k, v in m.items()}, "grads": grads.cpu().numpy(),
+            "stats": stats.cpu().numpy()}
+
+
+def params_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in state.model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_train_rank(mesh, batches: dict, hyps: dict) -> dict:
+    """Phase 18's gloo part on one rank: each step kind on its global batch
+    under the mesh (the first step's terms, gradients and statistics; the
+    parameters' digest after 3 steps), then each trainer's ``train(mesh=)``
+    for 2 steps, with the checkpoint writes and the DB eval's K2 and K6
+    binarize launches counted on this rank."""
+    import torch
+
+    from comic_text_detector_tpu_torch.ops import cc_kernels as K
+    from comic_text_detector_tpu_torch.ops import finalize as K6
+    from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
+    from comic_text_detector_tpu_torch.training import db_trainer, seg_trainer, yolo_trainer
+    from comic_text_detector_tpu_torch.weights import blk_train_from_deploy, load_npz, train_from_deploy
+
+    dev = mesh.devices[0]
+    out = {}
+    for kind in MESH_KINDS:
+        state = mesh_state(kind, dev)
+        out[kind] = mesh_step(kind, state, batches[kind], mesh)
+        for _ in range(2):
+            mesh_step(kind, state, batches[kind], mesh)
+        out[kind]["digest"] = params_digest(state)
+        del state
+    deploy = load_npz(WEIGHTS)
+    variables = {"seg": lambda: train_from_deploy(deploy), "db": lambda: train_from_deploy(deploy, with_db=True),
+                 "yolo": lambda: blk_train_from_deploy(deploy)}
+    trainers = {"seg": seg_trainer, "db": db_trainer, "yolo": yolo_trainer}
+    saves = []
+    real_save = ckpt_lib.save
+
+    def counted_save(path, *args, **kwargs):
+        saves.append(os.path.basename(path))
+        return real_save(path, *args, **kwargs)
+
+    ckpt_lib.save = counted_save
+    try:
+        for kind, hyp in hyps.items():
+            saves.clear()
+            K.cc_windows_local.launches = 0
+            K6.binarize.launches = 0
+            t0 = time.perf_counter()
+            res = trainers[kind].train(hyp, variables=variables[kind](), max_steps=2, mesh=mesh)
+            torch.cuda.synchronize()
+            out["train_" + kind] = {"steps": res["steps"], "saves": list(saves), "s": time.perf_counter() - t0,
+                                    "K2": K.cc_windows_local.launches, "K6 binarize": K6.binarize.launches,
+                                    "digest": params_digest(res["state"])}
+    finally:
+        ckpt_lib.save = real_save
+    return out
+
+
+def nccl_yolo_rank(mesh, batch: dict) -> list:
+    """Phase 18's NCCL part: the YOLO step through the mesh route at world
+    1, twice from the same weights."""
+    return [mesh_step("yolo", mesh_state("yolo", mesh.devices[0]), batch, mesh) for _ in range(2)]
+
+
+def hold_step(name: str, got: dict, ref: dict) -> dict:
+    """A mesh step against the one-process step: loss terms within 1e-5
+    relative, gradients within 1e-4 in relative L2, running statistics
+    within 1e-5 (absolute and relative)."""
+    import numpy as np
+
+    rel = {k: abs(got["terms"][k] - v) / max(abs(v), 1e-30) for k, v in ref["terms"].items()}
+    g, gr = got["grads"].astype(np.float64), ref["grads"].astype(np.float64)
+    l2 = float(np.linalg.norm(g - gr) / max(np.linalg.norm(gr), 1e-30))
+    s, sr = got["stats"].astype(np.float64), ref["stats"].astype(np.float64)
+    stats_gap = float(np.max(np.abs(s - sr) / (1e-5 + 1e-5 * np.abs(sr)))) if sr.size else 0.0
+    if max(rel.values()) > 1e-5 or l2 > 1e-4 or stats_gap > 1.0:
+        raise AssertionError(f"{name}: loss terms rel {rel}, gradients rel L2 {l2:.3e}, running statistics at "
+                             f"{stats_gap:.3f} of their 1e-5 bound")
+    return {"terms_rel": rel, "grads_rel_l2": l2, "stats_gap_of_bound": stats_gap}
+
+
+def mesh_phase(dev, smi: str, drive, path_1024, variables, warm, spages, out16, out32, stream_pps: float,
+               imgsz: int = 512, bs: int = 8, card: str = "cuda:0", world1_backend: str = "nccl") -> dict:
+    """Phase 18: data parallelism on the card (see the module docstring).
+    ``card`` and ``world1_backend`` let a rehearsal on the CPU run it on
+    ``"cpu"`` and gloo."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch.data import blk_dataset, db_dataset, seg_dataset
+    from comic_text_detector_tpu_torch.parallel.mesh import make_mesh, spawn
+    from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
+
+    t_phase = time.perf_counter()
+    result = {}
+    # 1. the batch stream over two replicas (two cards where there are two)
+    devices = ["cuda:0", "cuda:1"] if torch.cuda.device_count() > 1 else [card, card]
+    bkw = dict(batch_size=4, input_size=1024, refine_backend="device", mask_transfer="packed",
+               mesh=make_mesh(devices=devices))
+    m32 = BatchTextDetector(variables, half=False, **bkw)
+    got32 = list(m32.stream(iter(spages)))
+    same32 = [same_outputs(a, b) for a, b in zip(got32, out32)]
+    if len(got32) != len(spages) or not all(same32):
+        raise AssertionError(f"the float32 mesh stream differs from the stream without a mesh: {same32}")
+    del m32
+    m16 = BatchTextDetector(variables, half=True, **bkw)
+    list(m16.stream(iter(warm)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got16, counts = drive(lambda: list(m16.stream(iter(spages))), path_1024)
+    mesh_s = time.perf_counter() - t0
+    blocks = [(len(a[2]), len(b[2])) for a, b in zip(got16, out16)]
+    ious = [mask_iou(a[1], b[1]) for a, b in zip(got16, out16)]
+    if any(a != b for a, b in blocks) or min(ious) < 0.98:
+        raise AssertionError(f"bf16 mesh stream against the stream without a mesh: blocks {blocks}, refined IoU "
+                             f"{min(ious):.4f}")
+    per_page = {k: v / len(spages) for k, v in counts.items() if v}
+    phase(f"  BatchTextDetector(mesh=make_mesh(devices={devices})): float32 bit-identical to the stream without a "
+          f"mesh on {len(spages)} pages; bf16 the same block counts, refined IoU >= {min(ious):.4f}; "
+          f"{len(spages) / mesh_s:.3f} pages/s (phase 6 without a mesh {stream_pps:.3f}); launches a page {per_page}; "
+          f"{smi}")
+    result["stream"] = {"devices": devices, "pages_per_s_bf16": len(spages) / mesh_s,
+                        "pages_per_s_bf16_no_mesh": stream_pps, "launches_per_page": per_page,
+                        "launches": counts, "refined_iou_min_bf16": min(ious)}
+    del m16
+    torch.cuda.empty_cache()
+
+    # 2. two gloo ranks on the card against one process; 3. NCCL at world 1
+    work = tempfile.mkdtemp(prefix="ctd_mesh_")
+    try:
+        rng = np.random.default_rng(18)
+        train_dir = write_pages(os.path.join(work, "train"), rng, 16)
+        val_dir = write_pages(os.path.join(work, "val"), rng, 8)
+        imgs, masks = next(iter(seg_dataset.create_dataloader(train_dir, "", imgsz, bs, as_uint8=True,
+                                                              shuffle=False)[1]))
+        dbb = next(iter(db_dataset.create_dataloader(train_dir, "", imgsz, bs, as_uint8=True, shuffle=False)[1]))
+        bimgs, labels, lmask = next(iter(blk_dataset.create_dataloader(train_dir, imgsz, bs, as_uint8=True,
+                                                                         shuffle=False)[1]))
+        batches = {"seg": {"imgs": imgs, "masks": masks}, "db": {k: dbb[k] for k in DB_KEYS},
+                   "yolo": {"imgs": bimgs, "labels": labels, "label_mask": lmask}}
+        train = {"epochs": 1, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam", "momentum": 0.9,
+                 "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1, "loss": "bce", "warmup_steps": 2}
+        hyps = {}
+        for kind, augment in (("seg", True), ("db", False), ("yolo", True)):
+            save_dir = os.path.join(work, kind)
+            hyps[kind] = {"data": {"train_img_dir": train_dir, "val_img_dir": val_dir, "imgsz": imgsz,
+                                   "augment": augment, "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1},
+                                   "save_dir": save_dir}, "model": {"act": "leaky"}, "train": dict(train)}
+        # the two gloo ranks and the NCCL rank start together, and this
+        # process takes the one-process steps while they start up
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            gloo = pool.submit(spawn, mesh_train_rank, 2, backend="gloo", devices=[card, card], timeout=600,
+                               args=(batches, hyps))
+            nccl = pool.submit(spawn, nccl_yolo_rank, 1, backend=world1_backend, devices=[card], timeout=300,
+                               args=(batches["yolo"],))
+            refs = {kind: mesh_step(kind, mesh_state(kind, dev), batches[kind]) for kind in MESH_KINDS}
+            ranks = gloo.result()
+            gloo_s = time.perf_counter() - t0
+            runs = nccl.result()[0]
+            nccl_s = time.perf_counter() - t0
+        result["gloo"] = {"s": gloo_s}
+        for kind in MESH_KINDS:
+            r0, r1 = ranks[0][kind], ranks[1][kind]
+            if r0["terms"] != r1["terms"] or r0["digest"] != r1["digest"]:
+                raise AssertionError(f"{kind}: the ranks differ: {r0['terms']} / {r1['terms']}, parameters after 3 "
+                                     f"steps {r0['digest'][:12]} / {r1['digest'][:12]}")
+            held = hold_step(f"{kind} step, 2 gloo ranks", r0, refs[kind])
+            result["gloo"][kind] = held
+            phase(f"  {kind} step, 2 gloo ranks on {card}, global batch {bs} at {imgsz}: loss terms rel "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in held["terms_rel"].items())
+                  + f"; gradients rel L2 {held['grads_rel_l2']:.2e}; running statistics at "
+                  f"{held['stats_gap_of_bound']:.3f} of the bound; the ranks' parameters bit-identical after 3 steps")
+        want_saves = {"seg": ["unet_last.ctd", "unet_best.ctd"], "db": ["db_last.ctd", "db_best.ctd"],
+                      "yolo": ["yolo_last.ctd", "yolo_best.ctd"]}
+        for kind in MESH_KINDS:
+            t0, t1 = ranks[0]["train_" + kind], ranks[1]["train_" + kind]
+            if (t0["steps"], t1["steps"]) != (2, 2) or t1["saves"] or want_saves[kind][0] not in t0["saves"] \
+                    or not set(t0["saves"]) <= set(want_saves[kind]) or t0["digest"] != t1["digest"]:
+                raise AssertionError(f"{kind}_trainer.train(mesh=): rank 0 {t0}, rank 1 {t1}")
+            if not all(os.path.exists(os.path.join(work, kind, f)) for f in t0["saves"]):
+                raise AssertionError(f"{kind}_trainer.train(mesh=) left no checkpoint in {os.path.join(work, kind)}")
+        db0, db1 = ranks[0]["train_db"], ranks[1]["train_db"]
+        if db0["K2"] <= 0 or db0["K6 binarize"] <= 0 or db1["K2"] or db1["K6 binarize"]:
+            raise AssertionError(f"the mesh DB eval's launches: rank 0 {db0}, rank 1 {db1}")
+        result["gloo"]["trainers"] = {k: {"rank0": ranks[0]["train_" + k], "rank1": ranks[1]["train_" + k]}
+                                      for k in MESH_KINDS}
+        phase(f"  seg, DB and YOLO train(mesh=), 2 gloo ranks, 2 steps each: "
+              + ", ".join(f"{k} {ranks[0]['train_' + k]['s']:.1f} s" for k in MESH_KINDS)
+              + f"; rank 0 alone wrote {[ranks[0]['train_' + k]['saves'] for k in MESH_KINDS]}; the DB eval on rank 0 "
+              f"launched K2 x{db0['K2']} and K6 binarize x{db0['K6 binarize']}, rank 1 none; the ranks' parameters "
+              f"bit-identical; {gloo_s:.1f} s for the ranks; {smi}")
+
+        a, b = runs
+        if a["terms"] != b["terms"] or not np.array_equal(a["grads"], b["grads"]) \
+                or not np.array_equal(a["stats"], b["stats"]):
+            raise AssertionError("the NCCL world-1 YOLO step differs between two runs")
+        held = hold_step("YOLO step, NCCL at world 1", a, refs["yolo"])
+        result["nccl_world1"] = dict(held, s=nccl_s)
+        phase(f"  YOLO step through the mesh route, {world1_backend} at world 1: loss terms rel "
+              + ", ".join(f"{k} {v:.2e}" for k, v in held["terms_rel"].items())
+              + f"; gradients rel L2 {held['grads_rel_l2']:.2e}; two runs bit-identical; {nccl_s:.1f} s from the "
+              f"launch of both groups; {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["s"] = time.perf_counter() - t_phase
+    phase(f"  phase 18 took {result['s']:.1f} s")
+    return result
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2049,7 +2334,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/17 device")
+    phase("1/18 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2060,13 +2345,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/17 build kernels (nvcc, one per source, in parallel)")
+    phase("2/18 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
 
-    phase("3/17 kernels vs plain versions, bit for bit")
+    phase("3/18 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -2137,7 +2422,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/17 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/18 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -2317,7 +2602,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/17 output check: card vs the port's CPU route")
+    phase("5/18 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -2355,7 +2640,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/17 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/18 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -2404,7 +2689,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/17 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/18 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -2425,7 +2710,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/17 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/18 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -2567,7 +2852,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/17 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/18 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -2598,10 +2883,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/17 K5 vs its plain version, bit for bit")
+    phase("10/18 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/17 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/18 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2679,7 +2964,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/17 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/18 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
@@ -2933,14 +3218,27 @@ def main() -> None:
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     train = train_phases(dev, smi, counters)
     print(json.dumps({"train": train, "card": smi}), flush=True)
-    phase("16/17 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
+    phase("16/18 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
           "device refine, packed masks")
     files = model_files_phase(det_dev, pages, drive, path_1024, smi)
     print(json.dumps({"model_files": files, "card": smi}), flush=True)
-    phase("17/17 the YOLO graph's block variants (V5S_TR, V5S_GHOST) through TextDetector at 1024, device refine, "
+    phase("17/18 the YOLO graph's block variants (V5S_TR, V5S_GHOST) through TextDetector at 1024, device refine, "
           "packed masks; their model files; the CLI")
     variants = variant_phase(pages, small, drive, smi, det_dev)
     print(json.dumps({"variants": variants, "card": smi}), flush=True)
+    phase("18/18 data parallelism: BatchTextDetector(mesh=) over two replicas; the seg, DB and YOLO steps and "
+          "trainers on 2 gloo ranks on cuda:0; the YOLO step on NCCL at world 1")
+    mesh = mesh_phase(dev, smi, drive, path_1024, variables, warm, spages, out16, out32, len(spages) / stream_s)
+    print(json.dumps({"mesh": mesh, "card": smi}), flush=True)
+    db_eval = mesh["gloo"]["trainers"]["db"]["rank0"]
+    for entry in kernels:  # the launches on the mesh paths: the stream's, and the mesh DB trainer's eval
+        key = {"cc_ids_window (K1)": "K1", "cc_window (K2)": "K2", "min_prop_window (K3)": "K3",
+               "mask_to_u8 (K6 finalize)": "K6 mask_to_u8", "binarize (K6 binarize)": "K6 binarize"}.get(entry["name"])
+        if key is not None:
+            entry["mesh_stream_launches"] = mesh["stream"]["launches"][key]
+            if key in ("K2", "K6 binarize"):
+                entry["mesh_db_eval_launches"] = db_eval[key]
+    phase(f"whole script {time.perf_counter() - t_script:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

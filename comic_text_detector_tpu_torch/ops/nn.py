@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from comic_text_detector_tpu_torch.parallel.collectives import all_reduce, group_size
+
 
 def autopad(k: int, p: Optional[int] = None) -> int:
     """'same' padding for odd kernels (reference models/yolov5/common.py:24)."""
@@ -75,11 +77,36 @@ class BatchNorm2d(nn.BatchNorm2d):
     """Eval-mode BatchNorm computed as ``x * inv + (bias - mean * inv)`` with
     ``inv = rsqrt(var + eps) * weight``: the JAX package's order of
     operations (``ops/nn.py::batch_norm_inference``).  Parameter and buffer
-    names are torch's, so reference state dicts load unchanged."""
+    names are torch's, so reference state dicts load unchanged.
+
+    ``group`` (a ``torch.distributed`` process group, set by the train steps
+    under a mesh) makes the train-mode forward normalise with the
+    statistics of the global batch, whose equal blocks the group's ranks
+    hold: the JAX package's two passes (``models/blocks.py::BatchNorm``),
+    each sum taken over the ranks through the autograd all-reduce, so the
+    backward carries the cross-rank terms too."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.group is not None:
+            return self._global_batch_forward(x)
         if self.training:
             return super().forward(x)
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         b = self.bias - self.running_mean * inv
         return x * inv.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        n = x.numel() // x.shape[1] * group_size(self.group)  # the global count
+        mean = all_reduce(xf.sum((0, 2, 3)), self.group) / n
+        d = xf - mean[:, None, None]
+        var = all_reduce(torch.square(d).sum((0, 2, 3)), self.group) / n  # biased
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (d * inv[:, None, None] + self.bias[:, None, None]).to(x.dtype)

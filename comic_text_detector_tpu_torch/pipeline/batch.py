@@ -11,14 +11,22 @@ blocks and lines, and the masks are refined on the host or, with
 thread and keeps batches in flight, so that the next batch is uploaded and
 enqueued while the host finishes the previous one.
 
-Two parts of the JAX class are not ported, because they only schedule work
-on the TPU: padding each batch and each page-shape group to ``batch_size``
-(against XLA retraces), and ``mesh`` (data parallelism over TPU cores),
-which raises if given.
+With ``mesh=`` (``parallel.mesh.make_mesh(devices=...)``, one process)
+the detector keeps one replica of the net on each mesh device and splits
+every batch into contiguous blocks of ``ceil(n / d)`` pages, as the JAX
+class shards one batch over the ``data`` axis: each block runs net, NMS,
+K6 and the DB decode on its device and its pages refine there, and
+``collect`` returns the pages in order.  Serving is one process: a mesh
+with a process group raises.
+
+One part of the JAX class is not ported, because it only schedules work
+on the TPU: padding each batch and each page-shape group to
+``batch_size`` (against XLA retraces).
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from collections import deque
@@ -40,6 +48,7 @@ from comic_text_detector_tpu_torch.ops.resize import (
     resize_bilinear_fast,
     resize_cv2exact_u8,
 )
+from comic_text_detector_tpu_torch.parallel.mesh import replicate
 from comic_text_detector_tpu_torch.pipeline.detector import (
     _rescue_undetected_device,
     build_model,
@@ -54,6 +63,12 @@ from comic_text_detector_tpu_torch.utils.device import resolve_device
 from comic_text_detector_tpu_torch.utils.imgproc import expand_textwindow
 
 
+def _on(device: torch.device):
+    """Make ``device`` the current CUDA device for the kernels' launches
+    (nothing to do on the CPU)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class BatchTextDetector:
     """Fixed-batch detector: up to ``batch_size`` BGR pages per net call.
 
@@ -65,7 +80,9 @@ class BatchTextDetector:
 
     ``variables`` are the JAX package's weights (``weights.load_npz``).  Runs
     on ``device="cuda"``; ``device="cpu"`` must be asked for.  ``half=True``
-    (the default, as in the JAX package) runs the net in bf16.
+    (the default, as in the JAX package) runs the net in bf16.  ``mesh``
+    runs each batch split over the mesh's devices (module docstring), in
+    place of ``device``.
     """
 
     def __init__(
@@ -83,13 +100,14 @@ class BatchTextDetector:
         mask_transfer: str = "grey",
         device: str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh: TPU data parallelism has no counterpart in the port")
+        if mesh is not None and mesh.group is not None:
+            raise NotImplementedError("BatchTextDetector serves from one process: pass a mesh of this process's "
+                                      "devices (make_mesh(devices=...)) without a process group")
         if mask_transfer == "packed" and refine_backend != "device":
             raise ValueError("mask_transfer='packed' requires refine_backend='device'")
         self.refine_backend = refine_backend
         self.mask_transfer = mask_transfer
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
         self.batch_size = batch_size
         self.size = input_size
         self.conf_thresh = conf_thresh
@@ -98,6 +116,12 @@ class BatchTextDetector:
         self.box_thresh = C.DEFAULT_BOX_THRESH
         dtype = torch.bfloat16 if half else torch.float32
         self.model = build_model(variables, None, cfg, act, dtype, self.device, input_size)
+        self.devices = [self.device] if mesh is None else list(mesh.devices)
+        if mesh is not None:
+            self.replicas = replicate(mesh, self.model)
+            self.model = self.replicas[0]
+        else:
+            self.replicas = [self.model]
 
     @classmethod
     def random_init(cls, batch_size: int = 4, input_size: int = C.DEFAULT_INPUT_SIZE, seed: int = 0,
@@ -106,30 +130,42 @@ class BatchTextDetector:
         (``models/init.py::random_variables``)."""
         return cls(random_variables(seed), batch_size=batch_size, input_size=input_size, device=device, **kw)
 
-    def _upload(self, img: np.ndarray) -> torch.Tensor:
-        """Host page -> device, through a pinned buffer on the card (the
-        copy is asynchronous; the caching host allocator keeps the buffer
-        until it completes)."""
+    def _upload(self, img: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Host page -> device (``self.device`` by default), through a
+        pinned buffer on the card (the copy is asynchronous; the caching
+        host allocator keeps the buffer until it completes)."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(img))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
 
     @torch.no_grad()
     def submit(self, pages: Sequence[np.ndarray]):
         """Upload, letterbox and run one batch of pages (``stream`` sends
         ``batch_size`` at a time); returns an opaque ticket for :meth:`collect`.  The outputs
-        stay on the device until ``collect`` downloads them."""
+        stay on the device until ``collect`` downloads them.  Under a mesh
+        each device takes a contiguous block of ``ceil(n / d)`` pages."""
+        per = -(-len(pages) // len(self.replicas))
+        tickets = []
+        for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
+            block = list(pages[i * per:(i + 1) * per])
+            if block:
+                with _on(device):
+                    tickets.append((device, self._submit_block(block, model, device)))
+        return tickets
+
+    def _submit_block(self, pages: List[np.ndarray], model, device: torch.device):
         size = self.size
         metas, origs, lbs = [], [], []
         for img in pages:
             im_h, im_w = img.shape[:2]
             _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
-            orig = self._upload(img)  # one upload serves letterbox AND refine
+            orig = self._upload(img, device)  # one upload serves letterbox AND refine
             origs.append(orig)
             lbs.append(letterbox_device_u8(orig, size))
             metas.append((im_h, im_w, dw, dh))
-        blks, mask, lines = run_net(self.model, torch.stack(lbs))
+        blks, mask, lines = run_net(model, torch.stack(lbs))
         nms = [nms_single(b.to(torch.float32), self.conf_thresh, self.nms_thresh) for b in blks]
         rows = torch.stack([r for r, _ in nms])
         counts = torch.stack([c for _, c in nms])
@@ -155,7 +191,7 @@ class BatchTextDetector:
             masks_out = masks_full[:, : size - min_dh, : size - min_dw]
         outputs = (rows, counts, masks_out, boxes, scores, valid)
         extras = (origs, mask_devs) if self.refine_backend == "device" else None
-        return outputs, metas, list(pages), extras
+        return outputs, metas, pages, extras
 
     @torch.no_grad()
     def collect(
@@ -167,6 +203,13 @@ class BatchTextDetector:
         """Download one submitted batch, group each page's blocks and lines,
         refine its mask; returns [(mask, mask_refined, blk_list)] in page
         order."""
+        out = []
+        for device, block in ticket:
+            with _on(device):
+                out += self._collect_block(block, refine_mode, keep_undetected_mask)
+        return out
+
+    def _collect_block(self, ticket, refine_mode: int, keep_undetected_mask: bool):
         outputs, metas, pages, extras = ticket
         size = self.size
         rows, counts, masks_out, dboxes, dscores, dvalid = outputs

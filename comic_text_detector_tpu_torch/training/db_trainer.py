@@ -8,7 +8,9 @@ an eval through ``SegDetectorRepresenter`` + ``QuadMetric``.  The eval's
 DB decode runs on the model's device: on the card it launches K6 binarize
 and K2 (``postproc/db_rep.py``).  As in the JAX package, the eval gates on
 the epoch (the reference gated on the batch index, train_db.py:168).
-Runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``.
+Runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``;
+``mesh=`` trains data-parallel as ``training/seg_trainer.py`` sets out,
+with the eval on rank 0.
 """
 
 from __future__ import annotations
@@ -25,12 +27,18 @@ import torch
 
 from comic_text_detector_tpu_torch.data.db_dataset import create_dataloader
 from comic_text_detector_tpu_torch.models.detector import build_train_model, init_variables
+from comic_text_detector_tpu_torch.parallel.mesh import barrier, broadcast_module, from_rank0
 from comic_text_detector_tpu_torch.postproc.db_rep import SegDetectorRepresenter
 from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
 from comic_text_detector_tpu_torch.training.metrics import QuadMetric
-from comic_text_detector_tpu_torch.training.seg_trainer import build_model, make_lr_schedule, uploader
-from comic_text_detector_tpu_torch.training.steps import Optimizer, create_db_train_state, db_eval_step, db_train_step
-from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.training.seg_trainer import batch_uploader, build_model, make_lr_schedule, uploader
+from comic_text_detector_tpu_torch.training.steps import (
+    Optimizer,
+    create_db_train_state,
+    db_eval_step,
+    db_train_step,
+    train_device,
+)
 from comic_text_detector_tpu_torch.utils.log import LOGGER, Loggers
 from comic_text_detector_tpu_torch.weights import variables_from_state_dict
 
@@ -90,10 +98,10 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
           device: str = "cuda") -> Dict:
     """Run DB training from a hyp dict.  ``variables`` (JAX-layout DB train
     variables) and ``unet_variables`` (a trained U-Net's, grafted in) as in
-    the JAX package; ``mesh`` is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) comes with the port's DDP slice")
-    dev = resolve_device(device)
+    the JAX package; ``mesh`` (``parallel.mesh.make_mesh(group=...)``)
+    trains data-parallel, one process a device."""
+    dev = train_device(mesh, device)
+    main = mesh is None or mesh.rank == 0
     hyp_train, hyp_data = hyp["train"], hyp["data"]
     hyp_model = hyp.get("model", {})
     save_dir = hyp_data.get("save_dir", "data")
@@ -109,6 +117,7 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
     if unet_variables is not None:
         variables = graft_db_variables(variables, unet_variables)
     model = build_model(variables, act, with_db=True).to(dev)
+    broadcast_module(mesh, model)  # every rank starts from rank 0's weights
     imgsz = hyp_data["imgsz"]
 
     train_dataset, train_loader = create_dataloader(
@@ -135,7 +144,7 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
     state = create_db_train_state(model, tx)
     start_epoch = 0
     best_f1 = -1.0
-    logger = Loggers(hyp) if hyp.get("logger", {}).get("type") else None
+    logger = Loggers(hyp) if main and hyp.get("logger", {}).get("type") else None
 
     resume = hyp.get("resume", {})
     if resume.get("resume_training"):
@@ -143,7 +152,7 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
         start_epoch = payload["meta"].get("epoch", -1) + 1
         best_f1 = payload["meta"].get("best_f1", -1.0)
 
-    put = uploader(dev)
+    put = batch_uploader(mesh, dev)
     metric_cls = QuadMetric()
     post_process = SegDetectorRepresenter(thresh=0.5, device=str(dev))
     eval_interval = hyp_train.get("eval_interval", 1)
@@ -156,7 +165,7 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
         for i, batch in enumerate(train_loader):
             if (i + 2) % 256 == 0:
                 train_dataset.initialize()
-            metrics = db_train_step(state, {k: put(v) for k, v in batch.items() if k in _BATCH_KEYS}, use_bce)
+            metrics = db_train_step(state, {k: put(v) for k, v in batch.items() if k in _BATCH_KEYS}, use_bce, mesh)
             for k in keys:
                 epoch_metrics[k].append(metrics[k])
             total_steps += 1
@@ -167,16 +176,19 @@ def train(hyp: Dict, variables=None, unet_variables=None, max_steps: Optional[in
             means = dict(zip(keys, got))
 
         if (epoch + 1) % eval_interval == 0 or epoch == epochs - 1 or (max_steps and total_steps >= max_steps):
-            recall, precision, fmeasure = eval_model(state, val_loader, post_process, metric_cls)
+            recall, precision, fmeasure = from_rank0(
+                mesh, lambda: eval_model(state, val_loader, post_process, metric_cls), 3)
             save_best = best_f1 < fmeasure
             if save_best:
                 best_f1 = fmeasure
             # db_last carries the UPDATED best_f1: resumed runs restore it,
             # and a stale value would let a worse epoch overwrite db_best
             meta = {"epoch": epoch, "best_f1": best_f1, "date": datetime.now().isoformat()}
-            ckpt_lib.save(osp.join(save_dir, "db_last.ctd"), state, meta)
-            if save_best:
-                ckpt_lib.save(osp.join(save_dir, "db_best.ctd"), state, {**meta, "best_f1": best_f1})
+            if main:
+                ckpt_lib.save(osp.join(save_dir, "db_last.ctd"), state, meta)
+                if save_best:
+                    ckpt_lib.save(osp.join(save_dir, "db_best.ctd"), state, {**meta, "best_f1": best_f1})
+            barrier(mesh)
             LOGGER.info(f"epoch {epoch}: loss {means['loss']:.4f} P {precision:.4f} R {recall:.4f} F1 {fmeasure:.4f}")
             if logger is not None:
                 logger.on_train_epoch_end(epoch, {

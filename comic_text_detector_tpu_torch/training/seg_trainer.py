@@ -6,6 +6,16 @@ cosine/linear LR, gradient accumulation, periodic pixel-P/R/F1 eval,
 best/last checkpointing and pluggable logging, on ``torch.optim`` and the
 port's train steps (``training/steps.py``).  Runs on ``device="cuda"``
 unless the caller asks for ``device="cpu"``.
+
+Data parallel under ``mesh=`` (the three trainers alike): each process
+calls ``train`` on its mesh's one device.  Every rank runs the
+one-process loader (same seed, so the same global batches and augments)
+and its train step takes the rank's contiguous block of each global
+batch; ``nb`` and the learning-rate schedule stay the global ones.  The
+parameters and buffers start from rank 0's; rank 0 alone runs the evals
+over the whole val set and broadcasts their numbers, so every rank takes
+the same best-checkpoint decision, and rank 0 alone writes the
+checkpoints, behind a barrier.
 """
 
 from __future__ import annotations
@@ -22,10 +32,16 @@ import torch
 
 from comic_text_detector_tpu_torch.data.seg_dataset import create_dataloader
 from comic_text_detector_tpu_torch.models.detector import build_train_model, init_variables
+from comic_text_detector_tpu_torch.parallel.mesh import barrier, broadcast_module, from_rank0
 from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
 from comic_text_detector_tpu_torch.training.metrics import pixel_prf1
-from comic_text_detector_tpu_torch.training.steps import Optimizer, create_seg_train_state, seg_eval_step, seg_train_step
-from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.training.steps import (
+    Optimizer,
+    create_seg_train_state,
+    seg_eval_step,
+    seg_train_step,
+    train_device,
+)
 from comic_text_detector_tpu_torch.utils.log import LOGGER, Loggers
 from comic_text_detector_tpu_torch.weights import train_state_dict_from_jax
 
@@ -73,17 +89,23 @@ def uploader(device: torch.device):
     return lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device, non_blocking=True)
 
 
+def batch_uploader(mesh, device: torch.device):
+    """Upload of a global train batch: to ``device``, or under a mesh kept
+    on the host, whence each rank's train step moves its block."""
+    return uploader(device if mesh is None else torch.device("cpu"))
+
+
 def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None, device: str = "cuda") -> Dict:
     """Run seg training from a hyp dict (reference data/train_hyp.yaml shape).
 
     ``variables`` injects model variables in the JAX package's layout
     (``weights.train_from_deploy`` makes them from a deploy checkpoint);
     otherwise the model is randomly initialized.  ``max_steps`` bounds the
-    total train steps.  ``mesh`` (data parallelism) is not ported yet.
+    total train steps.  ``mesh`` (``parallel.mesh.make_mesh(group=...)``)
+    trains data-parallel, one process a device (see the module docstring).
     Returns a summary dict."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) comes with the port's DDP slice")
-    dev = resolve_device(device)
+    dev = train_device(mesh, device)
+    main = mesh is None or mesh.rank == 0
     hyp_train, hyp_data = hyp["train"], hyp["data"]
     hyp_model = hyp.get("model", {})
     save_dir = hyp_data.get("save_dir", "data")
@@ -94,6 +116,7 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
     train_backbone = bool(hyp_train.get("train_backbone", False))
     model = build_model(variables, hyp_model.get("act", "leaky"), with_db=False,
                         freeze_backbone=not train_backbone).to(dev)
+    broadcast_module(mesh, model)  # every rank starts from rank 0's weights
     imgsz = hyp_data["imgsz"]
 
     train_dataset, train_loader = create_dataloader(
@@ -116,7 +139,7 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
     state = create_seg_train_state(model, tx, train_backbone=train_backbone)
     start_epoch = 0
     best_f1 = -1.0
-    logger = Loggers(hyp) if hyp.get("logger", {}).get("type") else None
+    logger = Loggers(hyp) if main and hyp.get("logger", {}).get("type") else None
 
     resume = hyp.get("resume", {})
     if resume.get("resume_training"):
@@ -126,6 +149,7 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
         LOGGER.info(f"resumed from {resume['ckpt']} at epoch {start_epoch}")
 
     put = uploader(dev)
+    put_batch = batch_uploader(mesh, dev)
     eval_interval = hyp_train.get("eval_interval", 1)
     total_steps = 0
     m_loss = 0.0
@@ -134,20 +158,23 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
         train_dataset.initialize()
         losses = []  # device scalars, read once an epoch
         for imgs, masks in train_loader:
-            losses.append(seg_train_step(state, put(imgs), put(masks))["loss"])
+            losses.append(seg_train_step(state, put_batch(imgs), put_batch(masks), mesh)["loss"])
             total_steps += 1
             if max_steps is not None and total_steps >= max_steps:
                 break
         m_loss = float(torch.stack(losses).mean()) if losses else 0.0
 
         if (epoch + 1) % eval_interval == 0 or (max_steps and total_steps >= max_steps):
-            sums = torch.zeros(4, dtype=torch.float64, device=dev)  # tp, gt, pr, loss
-            n_batches = 0
-            for imgs, masks in val_loader:
-                m = seg_eval_step(state, put(imgs), put(masks))
-                sums += torch.stack([m["tp"], m["gt"], m["pr"], m["loss"]]).double()
-                n_batches += 1
-            tp, gt, pr, e_loss = sums.tolist()
+
+            def evaluate():
+                sums = torch.zeros(5, dtype=torch.float64, device=dev)  # tp, gt, pr, loss, batches
+                for imgs, masks in val_loader:
+                    m = seg_eval_step(state, put(imgs), put(masks))
+                    sums[:4] += torch.stack([m["tp"], m["gt"], m["pr"], m["loss"]]).double()
+                    sums[4] += 1
+                return sums.tolist()
+
+            tp, gt, pr, e_loss, n_batches = from_rank0(mesh, evaluate, 5)
             recall, precision, f1 = pixel_prf1(tp, gt, pr)
             save_best = best_f1 < f1
             if save_best:
@@ -155,10 +182,12 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
             # unet_last carries the UPDATED best_f1 so resumed runs can't
             # overwrite unet_best with a worse epoch
             meta = {"epoch": epoch, "best_f1": best_f1, "date": datetime.now().isoformat(), "hyp": None}
-            ckpt_lib.save(osp.join(save_dir, "unet_last.ctd"), state, meta)
-            if save_best:
-                LOGGER.info(f"saving model at epoch {epoch}, best val f1: {best_f1}")
-                ckpt_lib.save(osp.join(save_dir, "unet_best.ctd"), state, {**meta, "best_f1": best_f1})
+            if main:
+                ckpt_lib.save(osp.join(save_dir, "unet_last.ctd"), state, meta)
+                if save_best:
+                    LOGGER.info(f"saving model at epoch {epoch}, best val f1: {best_f1}")
+                    ckpt_lib.save(osp.join(save_dir, "unet_best.ctd"), state, {**meta, "best_f1": best_f1})
+            barrier(mesh)
             LOGGER.info(f"epoch {epoch}/{epochs-1} loss: {m_loss:.4f} precision: {precision:.4f} recall: {recall:.4f}")
             if logger is not None:
                 logger.on_train_epoch_end(epoch, {

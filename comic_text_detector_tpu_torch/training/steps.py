@@ -25,21 +25,39 @@ builds, on ``torch.optim``:
 
 Float32 convolutions run without TF32 and only through cuDNN's
 deterministic algorithms, so that a step repeats bit for bit on the card.
+
+Under a mesh (``mesh=``, one device a process, the processes joined by its
+group) a train step takes the global batch and computes the JAX step of
+the global batch, as the JAX package's jit over a batch sharded on the
+``data`` axis does: each rank runs its contiguous block, the trainable
+subnets' BatchNorms normalise with global statistics
+(``ops/nn.py::BatchNorm2d``), the losses return the global values and
+backpropagate each rank's share (``training/losses.py``), and the ranks'
+parameter gradients are summed in one all-reduce before the optimizer
+step.  A batch the ``data`` axis does not divide is computed whole on
+every rank, with no collective and no gradient sum, as the JAX trainers
+replicate it.  The eval steps take no mesh: the trainers evaluate on rank
+0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from comic_text_detector_tpu_torch.models.detector import BlkDetTrain, TextDetTrain
+from comic_text_detector_tpu_torch.ops import nn as tnn
+from comic_text_detector_tpu_torch.parallel.collectives import sum_grads
+from comic_text_detector_tpu_torch.parallel.mesh import Mesh, shard_batch
 from comic_text_detector_tpu_torch.training import losses
 from comic_text_detector_tpu_torch.training.yolo_loss import yolo_loss
+from comic_text_detector_tpu_torch.utils.device import resolve_device
 
 Schedule = Callable[[int], float]
 
@@ -193,21 +211,78 @@ def _cudnn():
     return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
+def train_device(mesh: Optional[Mesh], device: Union[str, torch.device]) -> torch.device:
+    """The device a trainer runs on: ``device``, or under a mesh the
+    mesh's one device (a trainer drives one device a process)."""
+    if mesh is None:
+        return resolve_device(device)
+    if len(mesh.devices) != 1:
+        raise ValueError(f"a trainer drives one device a process, this mesh holds {len(mesh.devices)}: start one "
+                         "process a device (parallel.mesh.spawn or torchrun) and pass make_mesh(group=...)")
+    return mesh.devices[0]
+
+
+@dataclasses.dataclass
+class _Shard:
+    """How a train step runs its batch: ``group`` is the mesh's process
+    group when this rank holds a block of the batch, else ``None``."""
+
+    mesh: Optional[Mesh]
+    group: Optional[object]
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the global batch ``x``, on its device."""
+        if self.mesh is None:
+            return x
+        if self.group is None:
+            return x.to(self.mesh.devices[0])
+        return shard_batch(self.mesh, x)[0]
+
+    @property
+    def loss_mesh(self) -> Optional[Mesh]:
+        return None if self.group is None else self.mesh
+
+
+@contextlib.contextmanager
+def _sharded(state: TrainState, mesh: Optional[Mesh], n: int) -> Iterator[_Shard]:
+    """Shard a global batch of ``n`` over the mesh when its ``data`` axis
+    divides ``n``, with the trainable subnets' BatchNorms on the mesh's
+    group for the step."""
+    if mesh is None or mesh.group is None or n % mesh.shape["data"]:
+        if mesh is not None and mesh.group is None and len(mesh.devices) != 1:
+            raise ValueError("a train step drives one device a process")
+        yield _Shard(mesh, None)
+        return
+    bns = [m for name in state.trainable for m in getattr(state.model, name).modules()
+           if isinstance(m, tnn.BatchNorm2d)]
+    for m in bns:
+        m.group = mesh.group
+    try:
+        yield _Shard(mesh, mesh.group)
+    finally:
+        for m in bns:
+            m.group = None
+
+
+def _update(state: TrainState, loss: torch.Tensor, group=None) -> None:
     state.optimizer.zero_grad()
     loss.backward()
+    sum_grads(state.optimizer.params, group)
     state.optimizer.step()
     state.step += 1
 
 
-def seg_train_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
+def seg_train_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """U-Net mask training step: dice(pred, mask) on the trainable seg_net.
-    Returns the loss as a device scalar (no host sync)."""
+    Returns the loss as a device scalar (no host sync).  Under a ``mesh``,
+    ``imgs`` and ``masks`` are the global batch (see the module
+    docstring)."""
     state.model.train()
-    with _cudnn():
-        pred = state.model(_as_float_img(imgs))
-        loss = losses.binary_dice_loss(pred[:, 0], _as_float_mask(masks))
-        _update(state, loss)
+    with _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
+        pred = state.model(_as_float_img(shard.take(imgs)))
+        loss = losses.binary_dice_loss(pred[:, 0], _as_float_mask(shard.take(masks)), mesh=shard.loss_mesh)
+        _update(state, loss, shard.group)
     return {"loss": loss.detach()}
 
 
@@ -221,15 +296,18 @@ def seg_eval_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor) ->
             "loss": losses.binary_dice_loss(pred, masks)}
 
 
-def db_train_step(state: TrainState, batch: Dict[str, torch.Tensor], use_bce: bool = True) -> Dict[str, torch.Tensor]:
+def db_train_step(state: TrainState, batch: Dict[str, torch.Tensor], use_bce: bool = True,
+                  mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """DB head training step on the frozen backbone and U-Net trunk.
     ``batch``: imgs (B, H, W, 3), shrink_map, shrink_mask, threshold_map,
-    threshold_mask (B, H, W).  Returns the loss terms as device scalars."""
+    threshold_mask (B, H, W).  Returns the loss terms as device scalars.
+    Under a ``mesh``, ``batch`` is the global batch."""
     state.model.train()
-    with _cudnn():
+    with _sharded(state, mesh, batch["imgs"].shape[0]) as shard, _cudnn():
+        batch = {k: shard.take(v) for k, v in batch.items()}
         pred = state.model(_as_float_img(batch["imgs"]))
-        metrics = losses.db_loss(pred, batch, use_bce=use_bce)
-        _update(state, metrics["loss"])
+        metrics = losses.db_loss(pred, batch, use_bce=use_bce, mesh=shard.loss_mesh)
+        _update(state, metrics["loss"], shard.group)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -242,25 +320,26 @@ def db_eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
 
 
 def _yolo_loss(model: BlkDetTrain, raw, labels: torch.Tensor, label_mask: torch.Tensor,
-               gains: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+               gains: Optional[Dict] = None, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     g = gains or {}
     spec = model.spec
     return yolo_loss(raw, labels, label_mask, spec.anchors, spec.strides, spec.nc, box_gain=g.get("box", 0.05),
-                     obj_gain=g.get("obj", 1.0), cls_gain=g.get("cls", 0.3))
+                     obj_gain=g.get("obj", 1.0), cls_gain=g.get("cls", 0.3), mesh=mesh)
 
 
 def yolo_train_step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor, label_mask: torch.Tensor,
-                    gains: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+                    gains: Optional[Dict] = None, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Detection training step: the v5 loss over the raw Detect maps of the
     whole graph in train mode, with dense target assignment on the device.
     ``imgs`` (B, H, W, 3), ``labels`` (B, L, 5) [cls, x, y, w, h]
     normalized, ``label_mask`` (B, L); ``gains`` {'box', 'obj', 'cls'}
-    (defaults 0.05, 1.0, 0.3).  Returns the loss terms as device scalars."""
+    (defaults 0.05, 1.0, 0.3).  Returns the loss terms as device scalars.
+    Under a ``mesh`` the three arrays are the global batch."""
     state.model.train()
-    with _cudnn():
-        raw, _ = state.model(_as_float_img(imgs), decode=False)
-        metrics = _yolo_loss(state.model, raw, labels, label_mask, gains)
-        _update(state, metrics["loss"])
+    with _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
+        raw, _ = state.model(_as_float_img(shard.take(imgs)), decode=False)
+        metrics = _yolo_loss(state.model, raw, shard.take(labels), shard.take(label_mask), gains, shard.loss_mesh)
+        _update(state, metrics["loss"], shard.group)
     return {k: v.detach() for k, v in metrics.items()}
 
 

@@ -14,14 +14,24 @@ in the flat (B, L, na, 5) candidate order: the JAX package's scatter keeps
 that one on the CPU.  A torch scatter with duplicate indices promises no
 winner (on CUDA it can change from run to run), so the winner is chosen
 explicitly: the largest candidate ordinal per target cell, then a gather.
+
+Under a mesh (``mesh=`` with a process group, each rank holding its
+contiguous block of the global batch) the loss is the JAX function of the
+global batch: each level's ``n_pos`` is the global count, clamped to 1
+after the sum over the ranks, the objectness mean is over the global
+B·na·gh·gw, and each rank backpropagates its share of every term
+(``training/losses.py`` states the rule).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from comic_text_detector_tpu_torch.parallel.collectives import all_reduce, group_size, sum_shares
+from comic_text_detector_tpu_torch.parallel.mesh import Mesh
 
 ANCHOR_T = 4.0  # wh-ratio gate (v5 hyp.anchor_t)
 BALANCE = (4.0, 1.0, 0.4)  # per-level objectness balance (v5, 3 levels)
@@ -135,9 +145,11 @@ def yolo_loss(
     box_gain: float = 0.05,
     obj_gain: float = 1.0,
     cls_gain: float = 0.3,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """v5 composite loss over the raw Detect maps -> {'loss', 'lbox',
     'lobj', 'lcls'} as scalars."""
+    group = None if mesh is None else mesh.group
     dev = raw[0].device
     na = raw[0].shape[1]
     # anchors in grid units, divided on the host; one copy, from pinned
@@ -153,7 +165,7 @@ def yolo_loss(
         t = _level_targets(labels, label_mask, anchors_grid, gh, gw)
         pos = t[..., 5] > 0
         posf = pos.to(torch.float32)
-        n_pos = posf.sum().clamp_min(1.0)
+        n_pos = all_reduce(posf.sum(), group).clamp_min(1.0)
 
         pf = p.to(torch.float32)
         pxy = torch.sigmoid(pf[..., 0:2]) * 2.0 - 0.5
@@ -162,7 +174,12 @@ def yolo_loss(
         lbox = lbox + torch.sum((1.0 - iou) * posf) / n_pos
 
         tobj = posf * iou.detach().clamp_min(0.0)
-        lobj = lobj + sigmoid_bce(pf[..., 4], tobj).mean() * BALANCE[i % len(BALANCE)]
+        bce_obj = sigmoid_bce(pf[..., 4], tobj)
+        if group is None:
+            obj_mean = bce_obj.mean()
+        else:  # this rank's share of the mean over the global batch
+            obj_mean = bce_obj.sum() / (bce_obj.numel() * group_size(group))
+        lobj = lobj + obj_mean * BALANCE[i % len(BALANCE)]
 
         if nc > 1:
             # jax.nn.one_hot: a class outside [0, nc) is all zeros
@@ -170,5 +187,6 @@ def yolo_loss(
             bce_cls = sigmoid_bce(pf[..., 5:], tcls).sum(-1)
             lcls = lcls + torch.sum(bce_cls * posf) / (n_pos * nc)
 
+    lbox, lobj, lcls = sum_shares([lbox, lobj, lcls], group)
     loss = box_gain * lbox + obj_gain * lobj + cls_gain * lcls
     return {"loss": loss, "lbox": lbox, "lobj": lobj, "lcls": lcls}

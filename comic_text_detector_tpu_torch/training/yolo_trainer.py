@@ -6,7 +6,9 @@ the seg and DB trainers are (warm-up + cosine learning rate, periodic
 eval, best/last checkpoints), on ``torch.optim`` and the port's steps
 (``training/steps.py``).  The eval reports the validation loss terms and
 per-class (eng/ja) AP50 through decode, NMS and greedy IoU-0.5 matching.
-Runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``.
+Runs on ``device="cuda"`` unless the caller asks for ``device="cpu"``;
+``mesh=`` trains data-parallel as ``training/seg_trainer.py`` sets out,
+with both evals on rank 0.
 """
 
 from __future__ import annotations
@@ -24,18 +26,19 @@ from comic_text_detector_tpu_torch.data.blk_dataset import create_dataloader
 from comic_text_detector_tpu_torch.models.detector import build_blk_train_model, init_variables
 from comic_text_detector_tpu_torch.models.yolo import initialize_detect_biases
 from comic_text_detector_tpu_torch.ops.nms import nms_single
+from comic_text_detector_tpu_torch.parallel.mesh import Mesh, barrier, broadcast_module, from_rank0
 from comic_text_detector_tpu_torch.training import checkpoint as ckpt_lib
 from comic_text_detector_tpu_torch.training.metrics import per_class_ap50
-from comic_text_detector_tpu_torch.training.seg_trainer import make_lr_schedule, uploader
+from comic_text_detector_tpu_torch.training.seg_trainer import batch_uploader, make_lr_schedule, uploader
 from comic_text_detector_tpu_torch.training.steps import (
     Optimizer,
     TrainState,
     create_yolo_train_state,
+    train_device,
     yolo_decode_step,
     yolo_eval_step,
     yolo_train_step,
 )
-from comic_text_detector_tpu_torch.utils.device import resolve_device
 from comic_text_detector_tpu_torch.utils.log import LOGGER
 from comic_text_detector_tpu_torch.weights import train_state_dict_from_jax
 
@@ -80,6 +83,20 @@ def eval_detection_ap(state: TrainState, val_loader, nc: int = 2, conf: float = 
     return per_class_ap50(preds, gts, nc=nc)
 
 
+def ap_from_rank0(mesh: Optional[Mesh], evaluate, nc: int) -> Dict:
+    """``evaluate()``'s per-class AP50 dict, computed on rank 0 alone and
+    broadcast to every rank of the mesh's group."""
+    if mesh is None or mesh.group is None:
+        return evaluate()
+
+    def flat():
+        ap = evaluate()
+        return [ap["map50"], *ap["ap50"], *ap["n_gt"]]
+
+    vals = from_rank0(mesh, flat, 1 + 2 * nc)
+    return {"ap50": np.asarray(vals[1:1 + nc]), "map50": vals[0], "n_gt": np.asarray(vals[1 + nc:], np.int64)}
+
+
 def build_model(variables=None, img_size: int = 640):
     """``BlkDetTrain`` from JAX-layout ``variables`` (``{'params':
     {'blk_det': ...}, 'batch_stats': {'blk_det': ...}}``, nested numpy
@@ -101,12 +118,12 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
     shape).  ``variables`` injects JAX-layout ``BlkDetTrain`` variables
     (``weights.blk_train_from_deploy`` makes them from a deploy
     checkpoint); otherwise the model is randomly initialized.
-    ``max_steps`` bounds the total train steps.  ``mesh`` (data
-    parallelism) is not ported yet.  Returns {'state', 'best_loss',
-    'last_loss', 'steps', 'ap'}."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (mesh=) comes with the port's DDP slice")
-    dev = resolve_device(device)
+    ``max_steps`` bounds the total train steps.  ``mesh``
+    (``parallel.mesh.make_mesh(group=...)``) trains data-parallel, one
+    process a device.  Returns {'state', 'best_loss', 'last_loss',
+    'steps', 'ap'}."""
+    dev = train_device(mesh, device)
+    main = mesh is None or mesh.rank == 0
     hyp_train, hyp_data = hyp["train"], hyp["data"]
     save_dir = hyp_data.get("save_dir", "data")
     os.makedirs(save_dir, exist_ok=True)
@@ -115,6 +132,7 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
     imgsz = hyp_data["imgsz"]
 
     model = build_model(variables, img_size=imgsz).to(dev)
+    broadcast_module(mesh, model)  # every rank starts from rank 0's weights
     nc = model.spec.nc
 
     train_dataset, train_loader = create_dataloader(
@@ -136,6 +154,7 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
     state = create_yolo_train_state(model, tx)
 
     put = uploader(dev)
+    put_batch = batch_uploader(mesh, dev)
     gains = hyp_train.get("gains")
     eval_interval = hyp_train.get("eval_interval", 1)
     total_steps = 0
@@ -147,32 +166,39 @@ def train(hyp: Dict, variables=None, max_steps: Optional[int] = None, mesh=None,
         train_dataset.initialize()
         losses = []  # device scalars, read once an epoch
         for imgs, labels, mask in train_loader:
-            losses.append(yolo_train_step(state, put(imgs), put(labels), put(mask), gains)["loss"])
+            losses.append(yolo_train_step(state, put_batch(imgs), put_batch(labels), put_batch(mask), gains,
+                                          mesh)["loss"])
             total_steps += 1
             if max_steps is not None and total_steps >= max_steps:
                 break
         m_loss = float(torch.stack(losses).mean()) if losses else 0.0
 
         if (epoch + 1) % eval_interval == 0 or epoch == epochs - 1 or (max_steps and total_steps >= max_steps):
-            sums = torch.zeros(4, dtype=torch.float64, device=dev)  # loss, lbox, lobj, lcls
-            n = 0
-            for imgs, labels, mask in val_loader:
-                m = yolo_eval_step(state, put(imgs), put(labels), put(mask), gains)
-                sums += torch.stack([m["loss"], m["lbox"], m["lobj"], m["lcls"]]).double()
-                n += 1
-            e = dict(zip(("loss", "lbox", "lobj", "lcls"), (v / max(n, 1) for v in sums.tolist())))
+
+            def evaluate():
+                sums = torch.zeros(4, dtype=torch.float64, device=dev)  # loss, lbox, lobj, lcls
+                n = 0
+                for imgs, labels, mask in val_loader:
+                    m = yolo_eval_step(state, put(imgs), put(labels), put(mask), gains)
+                    sums += torch.stack([m["loss"], m["lbox"], m["lobj"], m["lcls"]]).double()
+                    n += 1
+                return [v / max(n, 1) for v in sums.tolist()]
+
+            e = dict(zip(("loss", "lbox", "lobj", "lcls"), from_rank0(mesh, evaluate, 4)))
             save_best = e["loss"] < best_loss
             if save_best:
                 best_loss = e["loss"]
             # yolo_last carries best_loss so that a resumed run keeps the
             # best-model bookkeeping
             meta = {"epoch": epoch, "best_loss": best_loss, "date": datetime.now().isoformat()}
-            ckpt_lib.save(osp.join(save_dir, "yolo_last.ctd"), state, meta)
-            if save_best:
-                ckpt_lib.save(osp.join(save_dir, "yolo_best.ctd"), state, meta)
+            if main:
+                ckpt_lib.save(osp.join(save_dir, "yolo_last.ctd"), state, meta)
+                if save_best:
+                    ckpt_lib.save(osp.join(save_dir, "yolo_best.ctd"), state, meta)
+            barrier(mesh)
             ap_str = ""
             if hyp_train.get("eval_ap", True):
-                ap = eval_detection_ap(state, val_loader, nc=nc)
+                ap = ap_from_rank0(mesh, lambda: eval_detection_ap(state, val_loader, nc=nc), nc)
                 last_ap = ap
                 names = ("eng", "ja")
                 per = " ".join(

@@ -16,8 +16,8 @@ path's (device refine, packed masks), the latter also with
   refines are bit-equal to the JAX package's.
 
 Also: an error raised by the stream's source reaches the consumer after
-the pages read before it, and the constructor's contract (no mesh, packed
-needs the device refine, CUDA by default).
+the pages read before it, and the constructor's contract (no mesh with a
+process group, packed needs the device refine, CUDA by default).
 """
 
 import os
@@ -28,6 +28,7 @@ import torch
 
 from comic_text_detector_tpu.pipeline.batch import BatchTextDetector as JaxBatchTextDetector
 from comic_text_detector_tpu.training.checkpoint import load_compact
+from comic_text_detector_tpu_torch.parallel.mesh import Mesh
 from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
 from comic_text_detector_tpu_torch.weights import load_npz
 
@@ -126,7 +127,7 @@ def test_stream_propagates_source_errors(pages):
 
 def test_constructor_contract():
     with pytest.raises(NotImplementedError, match="mesh"):
-        BatchTextDetector({}, mesh=object(), device="cpu")
+        BatchTextDetector({}, mesh=Mesh([torch.device("cpu")], group=object()), device="cpu")
     with pytest.raises(ValueError, match="packed"):
         BatchTextDetector({}, mask_transfer="packed", device="cpu")
     if not torch.cuda.is_available():

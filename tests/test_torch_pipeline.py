@@ -27,6 +27,7 @@ import torch
 
 from comic_text_detector_tpu.pipeline.detector import TextDetector as JaxTextDetector
 from comic_text_detector_tpu.training.checkpoint import load_compact
+from comic_text_detector_tpu_torch.parallel.mesh import Mesh
 from comic_text_detector_tpu_torch.pipeline import BatchTextDetector, TextDetector
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,13 +137,13 @@ def test_packed_without_device_refine_raises():
 
 @pytest.mark.parametrize(
     "kwargs,error",
-    [(dict(mesh=object()), NotImplementedError),
+    [(dict(mesh=Mesh([torch.device("cpu")], group=object())), NotImplementedError),
      (dict(model_path="model.stablehlo", variables=None), ValueError)],
 )
 def test_later_slices_raise_not_implemented(kwargs, error):
-    """What the port does not run raises: a TPU mesh for the batch stream
-    (not ported), and the JAX package's .stablehlo artifact (the port's
-    deploy artifact is a .pt2 program)."""
+    """What the port does not run raises: a mesh with a process group for
+    the batch stream (serving is one process), and the JAX package's
+    .stablehlo artifact (the port's deploy artifact is a .pt2 program)."""
     args = dict(variables={}, device="cpu")
     args.update(kwargs)
     cls = BatchTextDetector if "mesh" in args else TextDetector

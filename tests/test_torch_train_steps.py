@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from comic_text_detector_tpu.training import losses as jax_losses
 from comic_text_detector_tpu.training import steps as jax_steps
 from comic_text_detector_tpu.training.seg_trainer import make_lr_schedule as jax_make_lr_schedule
+from comic_text_detector_tpu_torch.parallel.mesh import make_mesh
 from comic_text_detector_tpu_torch.training import db_trainer, losses, seg_trainer
 from comic_text_detector_tpu_torch.training.seg_trainer import make_lr_schedule
 from comic_text_detector_tpu_torch.training.steps import Optimizer, build_optimizer, one_cycle
@@ -224,8 +225,8 @@ def test_trainers_run_checkpoint_and_resume(tmp_path):
         assert out["steps"] == 2  # one epoch of 2 batches
         assert out["state"].optimizer.count == 4 and out["state"].step == 4
 
-    with pytest.raises(NotImplementedError):
-        seg_trainer.train(hyp, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one device a process"):  # a trainer's mesh is one device a process
+        seg_trainer.train(hyp, mesh=make_mesh(devices=["cpu", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             db_trainer.train(hyp)

@@ -71,6 +71,7 @@ from comic_text_detector_tpu_torch.data.blk_dataset import MAX_LABELS, BlkDatase
 from comic_text_detector_tpu_torch.models.detector import build_blk_train_model
 from comic_text_detector_tpu_torch.models.yolo import augmented_detect, initialize_detect_biases, scale_img
 from comic_text_detector_tpu_torch.ops.resize import resize_bilinear
+from comic_text_detector_tpu_torch.parallel.mesh import make_mesh
 from comic_text_detector_tpu_torch.training import checkpoint, yolo_trainer
 from comic_text_detector_tpu_torch.training import yolo_loss as PL
 from comic_text_detector_tpu_torch.training.steps import (
@@ -525,7 +526,9 @@ def test_yolo_trainer_runs_checkpoints_and_resumes(pages, tmp_path):
     with the loss and AP evals, yolo_last.ctd and yolo_best.ctd with
     best_loss; a state restored from yolo_last.ctd takes the next step;
     without variables the graph is drawn from seed 0 with the Detect bias
-    prior; mesh= raises, and without device='cpu' it asks for the card."""
+    prior; a mesh of two devices in one process raises (a trainer drives
+    one device a process), and without device='cpu' it asks for the
+    card."""
     hyp = {"data": {"train_img_dir": pages, "val_img_dir": pages, "imgsz": 64, "augment": True,
                     "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1}, "save_dir": str(tmp_path)},
            "train": {"epochs": 1, "batch_size": 2, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam", "momentum": 0.9,
@@ -558,8 +561,8 @@ def test_yolo_trainer_runs_checkpoints_and_resumes(pages, tmp_path):
         assert torch.equal(b[:, 4], torch.full((3,), np.float32(np.log(8 / (64 / s) ** 2))))
         assert torch.equal(b[:, 5:], torch.full((3, 2), np.float32(np.log(0.6 / (2 - 0.999999)))))
         assert not b[:, :4].any()
-    with pytest.raises(NotImplementedError):
-        yolo_trainer.train(hyp, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="one device a process"):
+        yolo_trainer.train(hyp, mesh=make_mesh(devices=["cpu", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             yolo_trainer.train(hyp)
