@@ -7,7 +7,9 @@ before it starts so a stall shows where it stopped:
 
 1. the card's name and power limit, the torch and CUDA versions;
 2. build the CUDA kernels from ``comic_text_detector_tpu_torch/csrc`` (one
-   nvcc per source, all started together), with the build time;
+   nvcc per source, all started together), with the build time, and the
+   host library (``native.py``, ``csrc/ctdnative.cpp``, with ``c++``), so
+   that the representer's timings leave its build out;
 3. hold each kernel (K1, K2, K3, both functions of K6) and the ids route
    bit for bit against its plain PyTorch version, small inputs first; K1
    at every refine bucket shape with 4 x slots windows; K1, K3 and the ids
@@ -187,11 +189,30 @@ before it starts so a stall shows where it stopped:
    launching K2 and K6 binarize (rank 1 none); and the YOLO step through
    the mesh route on NCCL at world 1, held to the one-process step with
    the same tolerances and bit-identical over two runs.  A rank that
-   raises, or a join past its time limit, fails the script.
+   raises, or a join past its time limit, fails the script;
+19. the host library behind ``boxes_from_stats`` (``host_library_phase``):
+   built again from its source into a temporary directory with the
+   machine's ``c++`` (the seconds printed) and equal to the one in use;
+   ``label_components`` (8- and 4-connected) and
+   ``component_min_area_rects`` bit-equal to their plain versions
+   (``native.label_components_plain``, ``component_min_area_rects_plain``)
+   at 1536x1536 45% noise and on phase 12's four 1536 DB maps, each timed;
+   ``SegDetectorRepresenter``'s quad mode on those maps and on two synthetic
+   1536 text-line maps (``text_line_maps``, about 230 quads a page: phase
+   12's maps give 1-2) through the library and through the NumPy route:
+   the same counts, equal scores, corners
+   within 1 px but where the two routes' min-area rects tie in area (each
+   route keeps the first tied orientation it meets), ms a page of each
+   route's host half and of the whole call, two runs of each route
+   bit-identical; then a child interpreter with Pillow blocked runs one DB
+   dataset epoch at imgsz 512 with ``rotate: 1.0`` and 2 steps of
+   ``db_trainer.train`` with the default DB hyp (its eval included), the
+   losses finite.
 
 Prints ``{"train": {...}}`` (phases 13-15), ``{"model_files": {...}}``
 (phase 16), ``{"variants": {...}}`` (phase 17), ``{"mesh": {...}}`` (phase
-18) and ``{"kernels": [...]}`` on lines of their own (every kernel with its
+18), ``{"host_library": {...}}`` (phase 19) and ``{"kernels": [...]}`` on
+lines of their own (every kernel with its
 event ``ms`` and its ``device_ms`` a launch on the card's clock, K1-K3 and
 K6 also with their launches on phase 18's mesh stream, K2 and K6 binarize
 with the mesh DB eval's), the whole script's seconds, and as its last line
@@ -1450,7 +1471,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
                 "aug_param": {"hsv": 0.5, "flip_lr": 0.5, "neg": 0.1, "mini_mosaic": 0.2}, "save_dir": work}
         results = {}
 
-        phase(f"13/18 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
+        phase(f"13/19 seg trainer on the card: imgsz {imgsz}, batch {bs}, full width, flagship_r2 weights")
         hyp_seg = {"data": data, "model": {"act": "leaky"},
                    "train": {"epochs": 2, "batch_size": bs, "lr0": 2e-3, "lrf": 0.05, "optimizer": "adam",
                              "momentum": 0.9, "weight_decay": 0.0, "eval_interval": 1, "accumulation_steps": 1,
@@ -1487,7 +1508,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
         unet_vars = variables_from_state_dict(st.model.state_dict())
         del st, seg_out
 
-        phase(f"14/18 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
+        phase(f"14/19 DB trainer on the card: grafted from the seg state, loss bce, imgsz {imgsz}, batch {bs}")
         db_vars = db_trainer.graft_db_variables(train_from_deploy(deploy, with_db=True), unet_vars)
         hyp_db = {"data": dict(data, augment=False), "model": {"act": "leaky"},
                   "train": {"epochs": 2, "batch_size": bs, "lr0": 1e-3, "lrf": 0.1, "optimizer": "adam",
@@ -1585,7 +1606,7 @@ def train_phases(dev, smi: str, counters: dict, imgsz: int = 512, bs: int = 8) -
               f"{len(blks)} blocks, mask>30 {(mask > 30).mean():.4f}")
         del st, db_out
 
-        phase(f"15/18 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
+        phase(f"15/19 YOLO trainer on the card: imgsz {imgsz}, batch {bs}, full width and depth, the whole graph "
               "in train mode, flagship_r2's blk_det")
         results["yolo"] = yolo_phase(dev, smi, counters, work, train_dir, val_dir, deploy, imgsz, bs)
         return results
@@ -2318,6 +2339,263 @@ def mesh_phase(dev, smi: str, drive, path_1024, variables, warm, spages, out16, 
     return result
 
 
+HOST_PHASE_CHILD = r"""
+import json, os, sys
+sys.modules["PIL"] = None  # Pillow blocked: the rotate and the PNG reader run without it
+import numpy as np
+from comic_text_detector_tpu_torch.data.db_dataset import create_dataloader
+from comic_text_detector_tpu_torch.training import db_trainer
+from comic_text_detector_tpu_torch.utils.config import DB_DEFAULTS, deep_merge
+train_dir, val_dir, work, device = sys.argv[1:5]
+aug = dict(DB_DEFAULTS["data"]["aug_param"], rotate=1.0)
+ds, loader = create_dataloader(train_dir, "", 512, 4, augment=True, aug_param=aug, shuffle=True, as_uint8=True)
+ds.initialize()
+batches = list(loader)
+finite = all(np.isfinite(b[k].astype(np.float64)).all() for b in batches for k in b if isinstance(b[k], np.ndarray))
+hyp = deep_merge(DB_DEFAULTS, {"data": {"train_img_dir": train_dir, "val_img_dir": val_dir, "save_dir": work}})
+out = db_trainer.train(hyp, max_steps=2, device=device)
+print(json.dumps({"epoch_batches": len(batches), "epoch_finite": bool(finite), "pil": "PIL.Image" in sys.modules,
+                  "imgsz": hyp["data"]["imgsz"], "batch_size": hyp["train"]["batch_size"],
+                  "rotate": hyp["data"]["aug_param"]["rotate"], "steps": out["steps"],
+                  "losses": out["last_metrics"]}))
+"""
+
+
+def text_line_maps(rng, n: int, size: int):
+    """``n`` synthetic (size, size) DB shrink maps of text-line bars (one
+    bar per 1500 pixels, rotated, 8-36 px long, 3-8 wide, 0.5-0.95), a 3x3
+    box blur and 2% speckle at 0.25, under the representer's threshold:
+    about 230 quads a page at 1536."""
+    import numpy as np
+
+    maps = np.zeros((n, 2, size, size), np.float32)
+    yy, xx = np.mgrid[-20:20, -20:20].astype(np.float32)
+    for m in maps[:, 0]:
+        for _ in range(size * size // 1500):
+            cy, cx = rng.integers(20, size - 20, 2)
+            ang = rng.uniform(0, np.pi)
+            length, width = rng.uniform(4, 18), rng.uniform(1.5, 4)
+            u = xx * np.cos(ang) + yy * np.sin(ang)
+            v = -xx * np.sin(ang) + yy * np.cos(ang)
+            bar = ((np.abs(u) < length) & (np.abs(v) < width)) * np.float32(rng.uniform(0.5, 0.95))
+            win = m[cy - 20:cy + 20, cx - 20:cx + 20]
+            np.maximum(win, bar, out=win)
+        pad = np.pad(m, 1)
+        m[:] = sum(pad[i:i + size, j:j + size] for i in range(3) for j in range(3)) / 9
+        m += 0.25 * (rng.random((size, size)) < 0.02)
+        np.clip(m, 0, 1, out=m)
+    maps[:, 1] = maps[:, 0]
+    return maps
+
+
+def route_rect_areas(stats, k: int, max_candidates: int) -> tuple:
+    """The areas (w * h, before the unclip) of the min-area rects that the
+    library route and the NumPy route of ``boxes_from_stats`` take for its
+    ``k``-th quad on host ``stats``."""
+    import numpy as np
+
+    from comic_text_detector_tpu_torch import native
+    from comic_text_detector_tpu_torch.ops import geometry as geo
+
+    labels, area = stats.compact_labels.numpy(), stats.area.numpy()
+    _, ssides, _ = native.get_native().component_min_area_rects(labels, len(area) - 1, None, 1.5)
+    kept = [i for i in range(1, len(area)) if area[i] > 0][:max_candidates]
+    comp = [i for i in kept if ssides[i - 1] >= 2.0][k]
+    ys, xs = np.nonzero(labels == comp)
+    _, lib_w, lib_h = native._min_area_rect(native._hull(xs.astype(np.float64), ys.astype(np.float64)))
+    _, (np_w, np_h) = geo.min_area_rect(np.stack([xs, ys], axis=1).astype(np.float64))
+    return lib_w * lib_h, np_w * np_h
+
+
+def host_library_phase(dev, smi: str, lines, thresh: float) -> dict:
+    """Phase 19: the host library (``native.py``, ``csrc/ctdnative.cpp``)
+    built from the checkout's source into a temporary directory with the
+    machine's ``c++``; ``label_components`` and ``component_min_area_rects``
+    against their plain versions at 1536x1536 45% noise and on phase 12's
+    four DB maps, bit for bit; ``SegDetectorRepresenter``'s quad mode on
+    those maps and on two synthetic text-line maps (``text_line_maps``)
+    through the library and through the NumPy route (the same counts, equal
+    scores, corners within 1 px but where the routes' min-area rects tie in
+    area), ms a page of each route's host half and of the whole call,
+    repeats bit-identical; and, in a child
+    interpreter with Pillow blocked, one DB dataset epoch at imgsz 512 with
+    ``rotate: 1.0`` and 2 steps of ``db_trainer.train`` with the default DB
+    hyp, its losses finite.  The child (about 25 s, most of it start-up and
+    the trainer's first steps) runs beside the build and the library-vs-plain
+    holds; the representer's routes are timed after it has ended."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from comic_text_detector_tpu_torch import native
+    from comic_text_detector_tpu_torch.ops import cuda_build
+    from comic_text_detector_tpu_torch.ops.cc import ComponentStats
+    from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_stats, db_device_decode
+    from comic_text_detector_tpu_torch.postproc.db_rep import SegDetectorRepresenter
+
+    out = {"card": smi}
+    work = tempfile.mkdtemp(prefix="ctd_host_")
+    child = None
+    try:
+        # Pillow blocked: the DB dataset's rotate and the DB trainer with the
+        # default hyp, in a child started first
+        page_rng = np.random.default_rng(190)
+        train_dir = write_pages(os.path.join(work, "train"), page_rng, 8)
+        val_dir = write_pages(os.path.join(work, "val"), page_rng, 4)
+        child_log = open(os.path.join(work, "child.log"), "w+")
+        t_child = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", HOST_PHASE_CHILD, train_dir, val_dir, work, str(dev)],
+                                 cwd=ROOT, stdout=child_log, stderr=subprocess.STDOUT, text=True)
+
+        cold = os.path.join(work, "libctd_ctdnative_cold.so")
+        t0 = time.perf_counter()
+        log = cuda_build.finish_build(cuda_build.start_build(native._cxx(), native.CXX_FLAGS, native.SOURCE, cold),
+                                      cold)
+        if log:
+            raise AssertionError(f"the host library did not build:\n{log}")
+        out["cold_build_s"] = time.perf_counter() - t0
+        fresh, lib = native.NativeLib(cold), native.get_native()
+        cxx = subprocess.run([native._cxx(), "--version"], capture_output=True, text=True).stdout.splitlines()[0]
+        phase(f"  host library built from csrc/ctdnative.cpp in {out['cold_build_s']:.2f} s ({cxx}; the one in use "
+              f"was built in phase 2 in {native.build_seconds:.2f} s)")
+
+        rng = np.random.default_rng(19)
+        noise = (rng.random((1536, 1536)) < 0.45).astype(np.uint8)
+        shrink = lines[:, 0].float().cpu().numpy()
+        cases = [("noise 45% 1536x1536", noise, rng.random(noise.shape).astype(np.float32))]
+        cases += [(f"DB map {i} (> {thresh})", (shrink[i] > thresh).astype(np.uint8), shrink[i]) for i in range(len(shrink))]
+        held = []
+        for name, mask, prob in cases:
+            t0 = time.perf_counter()
+            labels, n = lib.label_components(mask, 8)
+            t1 = time.perf_counter()
+            rects = lib.component_min_area_rects(labels, n, prob, 1.5)
+            t2 = time.perf_counter()
+            plain_labels, plain_n = native.label_components_plain(mask, 8)
+            t3 = time.perf_counter()
+            plain_rects = native.component_min_area_rects_plain(labels, n, prob, 1.5)
+            t4 = time.perf_counter()
+            if plain_n != n or not np.array_equal(plain_labels, labels):
+                raise AssertionError(f"label_components differs from its plain version on {name}")
+            if not all(np.array_equal(a, b) for a, b in zip(rects, plain_rects)):
+                raise AssertionError(f"component_min_area_rects differs from its plain version on {name}")
+            again = fresh.label_components(mask, 8)
+            if again[1] != n or not np.array_equal(again[0], labels) or not all(
+                    np.array_equal(a, b) for a, b in zip(fresh.component_min_area_rects(labels, n, prob, 1.5), rects)):
+                raise AssertionError(f"the cold build differs from the library in use on {name}")
+            l4, n4 = lib.label_components(mask, 4)
+            p4, pn4 = native.label_components_plain(mask, 4)
+            if n4 != pn4 or not np.array_equal(l4, p4):
+                raise AssertionError(f"label_components (4-connected) differs from its plain version on {name}")
+            held.append({"case": name, "components": n, "label_ms": (t1 - t0) * 1e3, "rects_ms": (t2 - t1) * 1e3,
+                         "label_plain_ms": (t3 - t2) * 1e3, "rects_plain_ms": (t4 - t3) * 1e3})
+            phase(f"  {name}: {n} components; label_components {held[-1]['label_ms']:.2f} ms (plain "
+                  f"{held[-1]['label_plain_ms']:.1f}), component_min_area_rects {held[-1]['rects_ms']:.2f} ms (plain "
+                  f"{held[-1]['rects_plain_ms']:.1f}); bit-equal to the plain versions (8- and 4-connected) and "
+                  f"to the cold build (the Pillow-blocked child runs beside)")
+        out["held"] = held
+        try:
+            child.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("the Pillow-blocked child did not end within 300 s") from None
+        child_s = time.perf_counter() - t_child
+        child_log.seek(0)
+        child_out = child_log.read()
+        child_log.close()
+        if child.returncode != 0:
+            raise AssertionError(f"the Pillow-blocked child failed:\n{child_out[-4000:]}")
+
+        # the representer's quad mode through both routes, on phase 12's maps
+        # and on synthetic text-line maps; the host half alone on
+        # statistics already on the host
+        rep = SegDetectorRepresenter(box_thresh=0.3, device=str(dev))
+        out["representer"] = {}
+        map_sets = (("phase 12's maps", lines.float()),
+                    ("text-line maps", torch.from_numpy(text_line_maps(np.random.default_rng(191), 2, 1536)).to(dev)))
+        for set_name, pred in map_sets:
+            h, w = pred.shape[-2:]
+            stats = [ComponentStats(*(t.cpu() for t in db_device_decode(pred[i, 0], rep.thresh, rep.capacity)))
+                     for i in range(pred.shape[0])]
+            routes = {}
+            for route in ("library", "numpy"):
+                saved = native.get_native
+                if route == "numpy":
+                    native.get_native = lambda: None
+                try:
+                    t0 = time.perf_counter()
+                    host = [boxes_from_stats(st, w, h, w, h) for st in stats]
+                    host_ms = (time.perf_counter() - t0) * 1e3 / len(stats)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    boxes, scores = rep(None, pred)
+                    call_ms = (time.perf_counter() - t0) * 1e3 / len(stats)
+                finally:
+                    native.get_native = saved
+                # the host half and the whole call are two runs of the route
+                if not all(np.array_equal(x[0], b) and np.array_equal(x[1], c)
+                           for x, b, c in zip(host, boxes, scores)):
+                    raise AssertionError(f"the representer's {route} route on {set_name}: two runs differ")
+                routes[route] = {"boxes": boxes, "scores": scores, "host_ms_per_page": host_ms,
+                                 "call_ms_per_page": call_ms, "per_page": [len(b) for b in boxes]}
+                phase(f"  representer quad mode on {set_name}, {route} route: {routes[route]['per_page']} a page; "
+                      f"host half {host_ms:.2f} ms a page, whole call {call_ms:.2f} ms a page; two runs "
+                      f"bit-identical; {smi}")
+            again = rep(None, pred)
+            if not all(np.array_equal(a, b) and np.array_equal(c, d) for a, b, c, d in
+                       zip(again[0], routes["library"]["boxes"], again[1], routes["library"]["scores"])):
+                raise AssertionError(f"the representer's library route on {set_name}: a third run differs")
+            lib_r, np_r = routes["library"], routes["numpy"]
+            gap, ties, tie_gap = 0, 0, 0
+            for i in range(len(stats)):
+                if len(lib_r["boxes"][i]) != len(np_r["boxes"][i]):
+                    raise AssertionError(f"{set_name}, page {i}: {len(lib_r['boxes'][i])} quads on the library "
+                                         f"route, {len(np_r['boxes'][i])} on the NumPy route")
+                if not np.array_equal(lib_r["scores"][i], np_r["scores"][i]):
+                    raise AssertionError(f"{set_name}, page {i}: the routes' scores differ")
+                if not len(lib_r["boxes"][i]):
+                    continue
+                far = np.abs(lib_r["boxes"][i].astype(np.int64) - np_r["boxes"][i].astype(np.int64)).reshape(
+                    len(lib_r["boxes"][i]), -1).max(axis=1)
+                near = far <= 1
+                gap = max(gap, int(far[near].max(initial=0)))
+                for k in np.nonzero(~near)[0]:
+                    lib_area, np_area = route_rect_areas(stats[i], int(k), rep.max_candidates)
+                    if abs(lib_area - np_area) > 1e-9 * lib_area:
+                        raise AssertionError(f"{set_name}, page {i}, quad {k}: the routes' corners differ by "
+                                             f"{far[k]} px and their min-area rects by area ({lib_area!r} against "
+                                             f"{np_area!r})")
+                    ties += 1
+                    tie_gap = max(tie_gap, int(far[k]))
+            if sum(lib_r["per_page"]) == 0:
+                raise AssertionError(f"the representer found no quad on {set_name}")
+            out["representer"][set_name] = {k: {x: v for x, v in r.items() if x not in ("boxes", "scores")}
+                                            for k, r in routes.items()}
+            out["representer"][set_name].update(corner_gap_px=gap, tied_rects=ties, tied_gap_px=tie_gap)
+            phase(f"  routes agree on {set_name}: the same counts, equal scores, corners within {gap} px but on "
+                  f"{ties} quads whose min-area rects tie in area (each route keeps the first of two tied "
+                  f"orientations it meets: up to {tie_gap} px apart); the library's host half "
+                  f"{np_r['host_ms_per_page'] / max(lib_r['host_ms_per_page'], 1e-9):.0f}x faster")
+
+        got = json.loads(child_out.strip().splitlines()[-1])
+        losses = list(got["losses"].values())
+        if got["pil"] or not got["epoch_finite"] or got["steps"] != 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"the Pillow-blocked child: {got}")
+        got["seconds"] = child_s
+        out["pillow_blocked"] = got
+        phase(f"  Pillow blocked: a DB dataset epoch at 512 with rotate 1.0 ({got['epoch_batches']} batches, finite), "
+              f"then db_trainer.train with the default DB hyp (imgsz {got['imgsz']}, batch {got['batch_size']}, "
+              f"rotate {got['rotate']}): {got['steps']} steps, loss {got['losses']['loss']:.5f}; "
+              f"{child_s:.1f} s in a child interpreter")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -2334,7 +2612,7 @@ def main() -> None:
     from comic_text_detector_tpu_torch.ops import morph as K5
     from comic_text_detector_tpu_torch.ops import scan_kernels as K4
 
-    phase("1/18 device")
+    phase("1/19 device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2345,13 +2623,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase("2/18 build kernels (nvcc, one per source, in parallel)")
+    phase("2/19 build kernels (nvcc, one per source, in parallel)")
     t0 = time.perf_counter()
     build_s = cuda_build.build_all()
     phase(f"build time {time.perf_counter() - t0:.1f} s (" + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
           + ")")
+    from comic_text_detector_tpu_torch import native
 
-    phase("3/18 kernels vs plain versions, bit for bit")
+    native.get_native()  # built here, so that the representer's timings below leave its build out
+    phase(f"  host library (csrc/ctdnative.cpp, c++): {native.build_seconds:.1f} s")
+
+    phase("3/19 kernels vs plain versions, bit for bit")
     from comic_text_detector_tpu_torch.ops import refine as R
     rng = np.random.default_rng(0)
     blob = np.zeros((1024, 1024), np.uint8)
@@ -2422,7 +2704,7 @@ def main() -> None:
     phase(f"  K6 mask_to_u8 and binarize bit-equal on {k6_seam_errs['cases']} seam cases: edge values, planes of 1, "
           "15, 16, 17, 4095 and 4097 elements, B = 1 and 5, page strides and bases that break 16-byte alignment")
 
-    phase("4/18 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
+    phase("4/19 single-page paths: TextDetector at 1024, flagship_r2 weights, host and device refine")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_full_device
     from comic_text_detector_tpu_torch.ops.nms import nms_single
     from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8, letterbox_shape, resize_cv2exact_u8
@@ -2602,7 +2884,7 @@ def main() -> None:
         }
     phase("  device step by stage (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
 
-    phase("5/18 output check: card vs the port's CPU route")
+    phase("5/19 output check: card vs the port's CPU route")
     canvas_gpu = R.refine_page(img0, mask0, windows, 0).cpu()
     canvas_cpu = R.refine_page(img0.cpu(), mask0.cpu(), windows, 0)
     if not torch.equal(canvas_gpu, canvas_cpu):
@@ -2640,7 +2922,7 @@ def main() -> None:
         raise AssertionError(f"device-refined mask IoU {iou_dev:.4f} between card and CPU")
     phase(f"  device refine at 512, card and CPU agree: {len(bg)} blocks, refined IoU {iou_dev:.4f}")
 
-    phase("6/18 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
+    phase("6/19 main path: BatchTextDetector.stream, bf16, batch 4, input 1024, device refine, packed masks")
     from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
     from comic_text_detector_tpu_torch.pipeline import BatchTextDetector
     from comic_text_detector_tpu_torch.weights import load_npz
@@ -2689,7 +2971,7 @@ def main() -> None:
           f"{'not measured (no device time in the trace)' if idle is None else f'{idle:.3f}'}; "
           f"top kernels (name, launches, ms): {top_kernels}")
 
-    phase("7/18 determinism: the same 12 pages streamed again, one single-page call repeated")
+    phase("7/19 determinism: the same 12 pages streamed again, one single-page call repeated")
     out16b = list(bdet.stream(iter(spages)))
     diff = [i for i, (x, y) in enumerate(zip(out16, out16b)) if not same_outputs(x, y)]
     if diff:
@@ -2710,7 +2992,7 @@ def main() -> None:
     phase(f"  bit-identical: 12 streamed pages x 2, single page x 2, DB decode of a 4-page stack x 3 "
           f"({int(dec[0][2].sum())} boxes)")
 
-    phase("8/18 bf16 vs f32, batch vs single page, error propagation")
+    phase("8/19 bf16 vs f32, batch vs single page, error propagation")
     bdet32 = BatchTextDetector(variables, half=False, **bkw)
     list(bdet32.stream(iter(warm)))
     torch.cuda.synchronize()
@@ -2852,7 +3134,7 @@ def main() -> None:
     if tuple(lines_big.shape) != (4, 2, big, big) or not bool(torch.isfinite(lines_big).all()):
         raise AssertionError(f"net DB maps at {big}: {tuple(lines_big.shape)}, finite {bool(torch.isfinite(lines_big).all())}")
 
-    phase("9/18 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
+    phase("9/19 K4 vs its plain version, bit for bit; connected_components on the K4, K2 and plain routes")
     noise = torch.from_numpy((np.random.default_rng(16).random((big, big)) < 0.45).astype(np.uint8))
     odd = np.zeros((1037, 1531), np.uint8)
     odd[::3] = 1
@@ -2883,10 +3165,10 @@ def main() -> None:
     phase("  connected_components(connectivity=4) through auto equal to the plain route: 2x64x4096 through K4, "
           "2x64x5000 (rows wider than K4's) through the plain route")
 
-    phase("10/18 K5 vs its plain version, bit for bit")
+    phase("10/19 K5 vs its plain version, bit for bit")
     k5_err = check_k5(dev)
 
-    phase(f"11/18 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
+    phase(f"11/19 the path at input {big}: BatchTextDetector.stream, bf16, batch 4, device refine, packed masks")
     list(bdet_big.stream(iter(hwarm)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2964,7 +3246,7 @@ def main() -> None:
     phase(f"  bit-identical: the {big} stream x 2, each TextDetector call x 2; the batch's DB decode equal "
           f"through K4, K2 and the plain route ({int(auto[2].sum())} boxes)")
 
-    phase("12/18 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
+    phase("12/19 SegDetectorRepresenter (quad, polygon) on the card vs the port's CPU route; K4 and K5 timings")
     # box_thresh 0.3: the net's line scores on these synthetic scans are about
     # 0.4, under the default 0.7, and polygon mode filters by it
     rep_gpu = SegDetectorRepresenter(box_thresh=0.3, device="cuda")
@@ -3218,18 +3500,25 @@ def main() -> None:
                       "pages": [list(p.shape) for p in hpages], "card": smi}), flush=True)
     train = train_phases(dev, smi, counters)
     print(json.dumps({"train": train, "card": smi}), flush=True)
-    phase("16/18 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
+    phase("16/19 model files: .pt, three parts, native msgpack, .onnx and .pt2 through TextDetector at 1024, "
           "device refine, packed masks")
     files = model_files_phase(det_dev, pages, drive, path_1024, smi)
     print(json.dumps({"model_files": files, "card": smi}), flush=True)
-    phase("17/18 the YOLO graph's block variants (V5S_TR, V5S_GHOST) through TextDetector at 1024, device refine, "
+    phase("17/19 the YOLO graph's block variants (V5S_TR, V5S_GHOST) through TextDetector at 1024, device refine, "
           "packed masks; their model files; the CLI")
     variants = variant_phase(pages, small, drive, smi, det_dev)
     print(json.dumps({"variants": variants, "card": smi}), flush=True)
-    phase("18/18 data parallelism: BatchTextDetector(mesh=) over two replicas; the seg, DB and YOLO steps and "
+    phase("18/19 data parallelism: BatchTextDetector(mesh=) over two replicas; the seg, DB and YOLO steps and "
           "trainers on 2 gloo ranks on cuda:0; the YOLO step on NCCL at world 1")
     mesh = mesh_phase(dev, smi, drive, path_1024, variables, warm, spages, out16, out32, len(spages) / stream_s)
     print(json.dumps({"mesh": mesh, "card": smi}), flush=True)
+    phase("19/19 the host library behind boxes_from_stats: build, its functions against their plain versions, the "
+          "representer through both routes; the DB rotate and trainer with Pillow blocked")
+    t0 = time.perf_counter()
+    host = host_library_phase(dev, smi, lines_f32, 0.3)
+    host["phase_s"] = time.perf_counter() - t0
+    phase(f"  phase 19: {host['phase_s']:.1f} s")
+    print(json.dumps({"host_library": host}), flush=True)
     db_eval = mesh["gloo"]["trainers"]["db"]["rank0"]
     for entry in kernels:  # the launches on the mesh paths: the stream's, and the mesh DB trainer's eval
         key = {"cc_ids_window (K1)": "K1", "cc_window (K2)": "K2", "min_prop_window (K3)": "K3",

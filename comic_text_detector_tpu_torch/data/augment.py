@@ -4,12 +4,14 @@ Own copy of the JAX package's ``data/augment.py``: HSV LUT jitter
 (reference seg_dataset.py:37-50), lr-flip, negation, and rotation with
 polygon rotation (db_dataset.py:160-174).  The HSV jitter draws from the
 ``np.random.RandomState`` it is given (the JAX package's defaults to
-NumPy's global one).  The rotation is Pillow's and imports it inside the
-call: it does not run where Pillow is absent.
+NumPy's global one).  The rotation computes what Pillow's
+``Image.rotate(degrees, resample=BILINEAR, expand=1)`` computes, bit for
+bit, in NumPy (``rotate_bilinear_expand``): it needs no Pillow.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -82,28 +84,99 @@ def negate(img: np.ndarray) -> np.ndarray:
     return 255 - img
 
 
-def rotate_image_and_polys(img: np.ndarray, ann: np.ndarray, degrees: float):
-    """PIL rotate with expand + polygon rotation, normalized coords in/out
-    (reference db_dataset.py:160-174).  Needs Pillow."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError("rotate augmentation needs Pillow, which is not installed: set aug_param "
-                           "rotate to 0") from e
+def _rotate_matrix(w: int, h: int, degrees: float):
+    """Pillow's ``rotate`` with ``expand``: the inverse affine matrix (the
+    output pixel to its source point) and the expanded size, in its float
+    order (entries rounded to 15 digits, the size from the transformed
+    corners, the translation moved onto the new centre)."""
+    a = -math.radians(degrees)
+    m = [round(math.cos(a), 15), round(math.sin(a), 15), 0.0, round(-math.sin(a), 15), round(math.cos(a), 15), 0.0]
 
-    pil = Image.fromarray(img)
+    def transform(x, y):
+        return m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5]
+
+    m[2], m[5] = transform(-w / 2, -h / 2)
+    m[2] += w / 2
+    m[5] += h / 2
+    xx, yy = zip(*(transform(x, y) for x, y in ((0, 0), (w, 0), (w, h), (0, h))))
+    nw = math.ceil(max(xx)) - math.floor(min(xx))
+    nh = math.ceil(max(yy)) - math.floor(min(yy))
+    m[2], m[5] = transform(-(nw - w) / 2.0, -(nh - h) / 2.0)
+    return m, nw, nh
+
+
+def rotate_bilinear_expand(img: np.ndarray, degrees: float) -> np.ndarray:
+    """``np.asarray(Image.fromarray(img).rotate(degrees, Image.BILINEAR,
+    expand=1))`` for a uint8 (H, W) or (H, W, C) image, C <= 3, without
+    Pillow.
+
+    The angle is taken mod 360; 0, 90, 180 and 270 are a copy or a
+    transpose.  Otherwise each output pixel samples its source point at
+    (x + 0.5, y + 0.5) through the inverse matrix in float64; a point outside
+    [0, W) x [0, H) is 0.  The bilinear filter subtracts 0.5, floors, clamps
+    the neighbours' columns and the upper row, interpolates the two rows in
+    x and then in y as ``a + (b - a) * d`` (the bottom row, with no row
+    below, interpolates in x alone) and truncates to uint8, as Pillow's
+    ``bilinear_filter8`` / ``bilinear_filter32RGB`` do."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] > 3):
+        raise ValueError(f"rotate takes a uint8 (H, W) or (H, W, C<=3) image, not {img.dtype} {img.shape}")
+    angle = float(degrees) % 360.0
+    if angle == 0:
+        return img.copy()
+    if angle in (90.0, 180.0, 270.0):
+        return np.ascontiguousarray(np.rot90(img, int(angle) // 90))
+    h, w = img.shape[:2]
+    m, nw, nh = _rotate_matrix(w, h, angle)
+    xin = np.arange(nw, dtype=np.float64) + 0.5
+    yin = (np.arange(nh, dtype=np.float64) + 0.5)[:, None]
+    xs = m[0] * xin + m[1] * yin
+    xs += m[2]
+    ys = m[3] * xin + m[4] * yin
+    ys += m[5]
+    sel = np.flatnonzero((xs >= 0.0) & (xs < w) & (ys >= 0.0) & (ys < h))
+    xs = xs.ravel()[sel]
+    xs -= 0.5
+    ys = ys.ravel()[sel]
+    ys -= 0.5
+    x0, y0 = np.floor(xs), np.floor(ys)
+    dx, dy = xs - x0, ys - y0
+    x0, y0 = x0.astype(np.intp), y0.astype(np.intp)
+    alone = y0 >= h - 1  # y0 >= -1 always: only the bottom row lacks a row below
+    xa, xb = np.maximum(x0, 0), np.minimum(x0 + 1, w - 1)
+    ra, rb = np.maximum(y0, 0) * w, np.minimum(y0 + 1, h - 1) * w
+    corners = (ra + xa, ra + xb, rb + xa, rb + xb)
+    planes = img[None] if img.ndim == 2 else np.moveaxis(img, 2, 0)
+    out = np.zeros((nh * nw, len(planes)), np.uint8)
+    for k, plane in enumerate(planes):  # a loop over channels, not pixels
+        g00, g01, g10, g11 = (np.ascontiguousarray(plane).ravel().take(i).astype(np.float64) for i in corners)
+        v1 = (g01 - g00) * dx
+        v1 += g00
+        v2 = (g11 - g10) * dx
+        v2 += g10
+        np.copyto(v2, v1, where=alone)
+        v2 -= v1
+        v2 *= dy
+        v2 += v1
+        out[sel, k] = v2  # float -> uint8 truncates, as Pillow's cast
+    out = out.reshape(nh, nw, len(planes))
+    return out if img.ndim == 3 else out[..., 0]
+
+
+def rotate_image_and_polys(img: np.ndarray, ann: np.ndarray, degrees: float):
+    """Pillow's bilinear rotate with expand (``rotate_bilinear_expand``) and
+    the polygons rotated with it, normalized coords in/out (reference
+    db_dataset.py:160-174)."""
+    rotated = rotate_bilinear_expand(img, degrees)
     if len(ann) == 0:  # textless page: rotate the image alone
-        pil = pil.rotate(degrees, resample=Image.BILINEAR, expand=1)
-        return np.asarray(pil), ann
-    center = (pil.width / 2, pil.height / 2)
+        return rotated, ann
+    h, w = img.shape[:2]
+    nh, nw = rotated.shape[:2]
     ann = ann.copy()
-    ann[:, :, 0] *= pil.width
-    ann[:, :, 1] *= pil.height
+    ann[:, :, 0] *= w
+    ann[:, :, 1] *= h
     flat = ann.reshape(len(ann), -1)
-    pil = pil.rotate(degrees, resample=Image.BILINEAR, expand=1)
-    new_center = (pil.width / 2, pil.height / 2)
-    flat = rotate_polygons(center, flat, degrees, new_center, to_int=False)
+    flat = rotate_polygons((w / 2, h / 2), flat, degrees, (nw / 2, nh / 2), to_int=False)
     ann = flat.reshape(len(ann), -1, 2)
-    ann[:, :, 0] /= pil.width
-    ann[:, :, 1] /= pil.height
-    return np.asarray(pil), ann
+    ann[:, :, 0] /= nw
+    ann[:, :, 1] /= nh
+    return rotated, ann

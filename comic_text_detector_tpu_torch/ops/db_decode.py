@@ -21,9 +21,10 @@ each; ``boxes_from_device_rects`` is the host finisher.
 
 The host half of ``SegDetectorRepresenter`` is here too:
 ``db_device_decode`` (labels and component statistics on the device),
-``boxes_from_stats`` (quads, NumPy only: the port does not load the JAX
-package's native extension) and ``polygons_from_stats`` (boundary trace,
-Douglas-Peucker, round-join offset).
+``boxes_from_stats`` (quads, through the port's host library,
+``native.py``, as the JAX package's route through its native extension;
+the NumPy route stays as its plain version) and ``polygons_from_stats``
+(boundary trace, Douglas-Peucker, round-join offset).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from comic_text_detector_tpu_torch import native
 from comic_text_detector_tpu_torch.constants import MAX_DB_COMPONENTS
 from comic_text_detector_tpu_torch.ops import geometry as geo
 from comic_text_detector_tpu_torch.ops.cc import (
@@ -258,10 +260,17 @@ def boxes_from_stats(
     Mirrors the reference's boxes_from_bitmap (db_utils.py:123-166): the
     min-area rect of each component, short sides under ``min_sside``
     skipped, unclip by area * ratio / perimeter, rescale to the destination
-    size, round and clip.  NumPy only (the JAX package's route without its
-    native extension).
+    size, round and clip.  The rects come from the host library
+    (``native.get_native()``, which raises where it cannot be built), as
+    the JAX package's native route; where ``get_native`` returns None (a
+    test's monkeypatch) the NumPy route runs, the JAX package's route
+    without its extension.
     """
     labels_np, area, vsum, xmin, ymin, xmax, ymax = _stats_np(stats)
+    lib = native.get_native()
+    rects = None  # (boxes already unclipped, short sides) of every component, from the library
+    if lib is not None and (area[1:] > 0).any():
+        rects = lib.component_min_area_rects(labels_np, len(area) - 1, None, unclip_ratio)
     boxes: List[np.ndarray] = []
     scores: List[float] = []
     n = 0
@@ -271,17 +280,20 @@ def boxes_from_stats(
         n += 1
         if n > max_candidates:
             break
-        pts = _component_points(labels_np, i, (xmin[i], ymin[i], xmax[i], ymax[i]))
-        box, sside = geo.mini_box(pts)
+        if rects is not None:
+            box, sside = rects[0][i - 1], rects[1][i - 1]
+        else:
+            pts = _component_points(labels_np, i, (xmin[i], ymin[i], xmax[i], ymax[i]))
+            box, sside = geo.mini_box(pts)
         if sside < min_sside:
             continue
-        score = float(vsum[i] / area[i])
-        _, (w, h) = geo.min_area_rect(pts)
-        per = 2.0 * (w + h)
-        distance = (w * h) * unclip_ratio / per if per > 0 else 0.0
-        box = geo.order_rect_points(geo.inflate_rect(box, distance))
-        boxes.append(_scale_clip(box, dest_width, dest_height, src_width, src_height))
-        scores.append(score)
+        if rects is None:
+            _, (w, h) = geo.min_area_rect(pts)
+            per = 2.0 * (w + h)
+            distance = (w * h) * unclip_ratio / per if per > 0 else 0.0
+            box = geo.inflate_rect(box, distance)
+        boxes.append(_scale_clip(geo.order_rect_points(box), dest_width, dest_height, src_width, src_height))
+        scores.append(float(vsum[i] / area[i]))
     if boxes:
         return np.stack(boxes), np.asarray(scores, np.float32)
     return np.zeros((0, 4, 2), np.int32), np.zeros((0,), np.float32)

@@ -12,9 +12,11 @@ Tolerances:
   of the 90 angles give float32-tied areas and 1-ulp differences in cos/sin
   between the frameworks pick the other one (``tests/test_torch_ops.py``);
   such a flip must keep the box's area within 1e-4 relative;
-* ``boxes_from_stats`` against the JAX package's native C++ route: its
-  min-area rects come from another float64 calipers loop, so the integer
-  quads may move by 1 px where a corner lands on a .5 after scaling.
+* ``boxes_from_stats`` and the quad-mode representer on the port's host
+  library against the JAX package's native C++ route: equal (the library
+  is the extension's code behind a plain-C interface,
+  ``tests/test_torch_native.py``); the NumPy routes are held against each
+  other with both packages' ``get_native`` patched to return None.
 
 The map over 1M elements (1088x1024) holds a repaired fault: the port's
 decode used to raise there.  The JAX side of that test takes about 5 s on
@@ -32,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 import comic_text_detector_tpu.native as jnative
+import comic_text_detector_tpu_torch.native as tnative
 from comic_text_detector_tpu.models.detector import build_inference_model as jax_build
 from comic_text_detector_tpu.ops import cc as jcc
 from comic_text_detector_tpu.ops import db_decode as jdb
@@ -47,6 +50,7 @@ from comic_text_detector_tpu_torch.ops import thresholding as tth
 from comic_text_detector_tpu_torch.ops.resize import letterbox_device_u8
 from comic_text_detector_tpu_torch.postproc.db_rep import SegDetectorRepresenter
 from comic_text_detector_tpu_torch.weights import state_dict_from_jax
+from tests.torch_native_oracle import jax_ext  # noqa: F401  (fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "data", "flagship_r2.npz")
@@ -173,6 +177,7 @@ def _stats_pair(sm: np.ndarray):
 
 def test_boxes_from_stats_matches_jax_numpy_route(maps, monkeypatch):
     monkeypatch.setattr(jnative, "get_native", lambda: None)
+    monkeypatch.setattr(tnative, "get_native", lambda: None)
     for sm in maps:
         jstats, tstats = _stats_pair(sm)
         for dest in ((256, 256), (512, 384)):
@@ -185,16 +190,23 @@ def test_boxes_from_stats_matches_jax_numpy_route(maps, monkeypatch):
     assert len(few[0]) <= 2
 
 
-def test_boxes_from_stats_near_jax_native_route(maps):
-    if jnative.get_native() is None:
-        pytest.skip("the JAX package's native extension did not build here")
+def test_boxes_from_stats_near_jax_native_route(maps, jax_ext, monkeypatch):
+    monkeypatch.setattr(jnative, "get_native", lambda: jax_ext)
     for sm in maps:
         jstats, tstats = _stats_pair(sm)
-        jb, js = jdb.boxes_from_stats(jstats, 256, 256, sm.shape[1], sm.shape[0])
-        tb, ts = tdb.boxes_from_stats(tstats, 256, 256, sm.shape[1], sm.shape[0])
-        assert tb.shape == jb.shape
-        assert np.abs(tb - jb).max() <= 1
-        np.testing.assert_array_equal(ts, js)
+        for dest in ((256, 256), (512, 384)):
+            jb, js = jdb.boxes_from_stats(jstats, *dest, sm.shape[1], sm.shape[0])
+            tb, ts = tdb.boxes_from_stats(tstats, *dest, sm.shape[1], sm.shape[0])
+            assert len(jb) > 3
+            np.testing.assert_array_equal(tb, jb)
+            np.testing.assert_array_equal(ts, js)
+        for kw in ({"max_candidates": 2}, {"min_sside": 6.0}, {"unclip_ratio": 2.0}):
+            jb, js = jdb.boxes_from_stats(jstats, 256, 256, sm.shape[1], sm.shape[0], **kw)
+            tb, ts = tdb.boxes_from_stats(tstats, 256, 256, sm.shape[1], sm.shape[0], **kw)
+            np.testing.assert_array_equal(tb, jb)
+            np.testing.assert_array_equal(ts, js)
+    empty = tdb.db_device_decode(torch.zeros(64, 64), 0.3)
+    assert tdb.boxes_from_stats(empty, 64, 64, 64, 64)[0].shape == (0, 4, 2)
 
 
 def test_polygons_from_stats_matches_jax(maps):
@@ -251,6 +263,7 @@ def net_maps():
 @pytest.mark.parametrize("polygon", [False, True])
 def test_seg_detector_representer_matches_jax(net_maps, polygon, monkeypatch):
     monkeypatch.setattr(jnative, "get_native", lambda: None)
+    monkeypatch.setattr(tnative, "get_native", lambda: None)
     lines_nchw, lines_nhwc = net_maps
     # the net's line scores on this page are 0.3-0.45: a box_thresh of 0.3
     # keeps polygons to compare
@@ -271,6 +284,26 @@ def test_seg_detector_representer_matches_jax(net_maps, polygon, monkeypatch):
     assert n > 3
     with pytest.raises(ValueError):
         rep(None, lines_nchw[0])
+
+
+def test_seg_detector_representer_native_route_matches_jax(net_maps, maps, jax_ext, monkeypatch):
+    """Quad mode through the port's host library against the JAX
+    representer through its native extension: equal."""
+    monkeypatch.setattr(jnative, "get_native", lambda: jax_ext)
+    lines_nchw, _ = net_maps
+    synthetic = np.stack([np.stack([m[:192, :160]] * 2) for m in maps])  # (3, 2, 192, 160)
+    n = 0
+    for pred, box_thresh in ((lines_nchw, 0.3), (synthetic, 0.7), (synthetic, 0.3)):
+        rep = SegDetectorRepresenter(thresh=0.3, box_thresh=box_thresh, device="cpu")
+        jrep = JaxRep(thresh=0.3, box_thresh=box_thresh)
+        jb, js = jrep(None, jnp.asarray(np.ascontiguousarray(pred.transpose(0, 2, 3, 1))))
+        tb, ts = rep(None, torch.from_numpy(pred))
+        assert len(tb) == len(jb) == len(pred)
+        for a, b, sa, sb in zip(tb, jb, ts, js):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            np.testing.assert_array_equal(sa, sb)
+            n += len(a)
+    assert n > 10
 
 
 # ---------------------------------------------------------------------------

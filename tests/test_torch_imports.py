@@ -47,7 +47,8 @@ def test_port_imports_no_jax_pil_cv2_or_jax_package():
                    "training.yolo_loss", "training.yolo_trainer", "data.blk_dataset", "utils.serialization",
                    "models.onnx_ingest", "models.convert", "export.program", "export.onnx", "cli",
                    "pipeline.annotations", "utils.viz", "utils.config", "utils.profiling", "data.render",
-                   "models.init", "parallel", "parallel.mesh", "parallel.loader", "parallel.collectives"):
+                   "models.init", "parallel", "parallel.mesh", "parallel.loader", "parallel.collectives",
+                   "native"):
         assert f"comic_text_detector_tpu_torch.{module}" in names, module
     assert report["LOADED"] == "", f"the port loaded {report['LOADED']}"
 
