@@ -1,0 +1,9 @@
+"""Host milliseconds a batch in ``BatchTextDetector.collect`` (downloads,
+grouping, refine finish), from the benchmark's wrapper, over the traced
+window's light phase (the host at its untraced speed)."""
+
+from ctd_bench.loops.common import host_mean
+
+
+def read(win):
+    return host_mean(win, "collect")
