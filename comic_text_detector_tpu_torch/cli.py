@@ -8,6 +8,10 @@
     python -m comic_text_detector_tpu_torch.cli render    --bg-dir D --save-dir O [--n 100]
     python -m comic_text_detector_tpu_torch.cli export    --model X.pt --out model.pt2
 
+``detect`` and ``annotate`` take ``--trace PATH``: the port's stages are
+recorded as spans (``utils/profiling.py``) and written to ``PATH`` as
+Chrome JSON, on the clock of a ``torch.profiler`` trace, for Perfetto.
+
 ``export`` writes the ``torch.export`` program (``export/program.py``; the
 JAX package writes ``.stablehlo``) and runs its parity check.  ``render``
 needs Pillow and the system fonts, and ``--hyp`` / ``--set`` need ``yaml``;
@@ -17,6 +21,7 @@ neither is among the packages the card's machine is stated to have.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from typing import Dict, List
 
@@ -37,11 +42,30 @@ def _parse_sets(pairs: List[str]) -> Dict:
     return out
 
 
+@contextlib.contextmanager
+def _spans(path):
+    """Record the port's spans over the block and write them to ``path``
+    (nothing without one)."""
+    if not path:
+        yield
+        return
+    from comic_text_detector_tpu_torch.utils import profiling
+
+    profiling.enable()
+    try:
+        yield
+    finally:
+        got = profiling.disable()
+        got.write_chrome(path)
+        print(f"{len(got.spans)} spans -> {path}")
+
+
 def cmd_annotate(args):
     from comic_text_detector_tpu_torch.pipeline import model2annotations
 
-    model2annotations(args.model, args.img_dir, args.save_dir, save_json=args.save_json,
-                      input_size=args.input_size, device=args.device)
+    with _spans(args.trace):
+        model2annotations(args.model, args.img_dir, args.save_dir, save_json=args.save_json,
+                          input_size=args.input_size, device=args.device)
 
 
 def cmd_detect(args):
@@ -50,7 +74,8 @@ def cmd_detect(args):
 
     det = TextDetector(args.model, input_size=args.input_size, device=args.device)
     img = imread(args.image)
-    mask, mask_refined, blk_list = det(img, keep_undetected_mask=True)
+    with _spans(args.trace):
+        mask, mask_refined, blk_list = det(img, keep_undetected_mask=True)
     imwrite(args.out_prefix + "-mask.png", mask)
     imwrite(args.out_prefix + "-mask-refined.png", mask_refined)
     with open(args.out_prefix + "-blocks.json", "w", encoding="utf8") as f:
@@ -136,6 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     for s in (a, d, e, *(sub.choices[n] for n in ("train-seg", "train-db"))):
         s.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    for s in (a, d):
+        s.add_argument("--trace", default=None, metavar="PATH",
+                       help="write the port's stages as spans to PATH (Chrome JSON, for Perfetto)")
     return p
 
 

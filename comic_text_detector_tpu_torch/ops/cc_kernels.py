@@ -39,6 +39,7 @@ import functools
 import torch
 
 from comic_text_detector_tpu_torch.ops import cuda_build
+from comic_text_detector_tpu_torch.utils.profiling import count
 
 CC_BIG = 2**30
 _INT32_MAX = 2**31 - 1
@@ -218,6 +219,7 @@ def launch_cc_ids_window(masks_u8: torch.Tensor, parent: torch.Tensor, counts: t
 
 
 def _raise_on_bound(err: torch.Tensor, name: str) -> None:
+    count("host_syncs")
     if int(err.item()) != 0:
         raise RuntimeError(f"{name}: a union-find loop exceeded its bound")
 

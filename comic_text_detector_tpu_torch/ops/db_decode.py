@@ -47,6 +47,7 @@ from comic_text_detector_tpu_torch.ops.cc import (
 )
 from comic_text_detector_tpu_torch.ops.cc_kernels import IDS_MAX_ELEMS, cc_ids_windows_local
 from comic_text_detector_tpu_torch.ops.finalize import binarize
+from comic_text_detector_tpu_torch.utils.profiling import count
 
 
 def db_device_decode(shrink_map: torch.Tensor, thresh: float, capacity: int = MAX_DB_COMPONENTS) -> ComponentStats:
@@ -154,6 +155,7 @@ def _decode_labeled(
         dense = torch.where(valid_pt & (dense < capacity), dense, 0)
         lut = torch.zeros(h * w + 2, dtype=torch.int64, device=dev)
         lut.scatter_reduce_(0, torch.where(valid_pt, skey, 0).long(), dense, "amax")
+        count("host_syncs")
         lut[0] = 0
         ids = lut[labels.reshape(-1).long()].view(h, w)
 
@@ -182,6 +184,7 @@ def _decode_labeled(
     # area so `valid` drops them (table ids are contiguous 1..max)
     in_table = torch.arange(capacity, device=dev) <= dense.max()
     area = torch.where(in_table, area, 0.0)
+    count("host_syncs")  # a Python scalar set into a device tensor: a blocking upload
     area[0] = 0.0
 
     per = 2.0 * (bw + bh)

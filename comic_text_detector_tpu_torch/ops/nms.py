@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from comic_text_detector_tpu_torch.constants import MAX_DET, MAX_NMS_CANDIDATES
+from comic_text_detector_tpu_torch.utils.profiling import count
 
 # per-class box offset of batched NMS (reference utils/yolov5_utils.py:195)
 _MAX_WH = 4096.0
@@ -46,13 +47,15 @@ def _top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     """Exact greedy-NMS keep mask for score-desc-sorted boxes; the fixpoint
-    is reached in at most K steps (suppression chains are a few deep)."""
+    is reached in at most K steps (suppression chains are a few deep).  Each
+    step's test waits on the device (``host_syncs``)."""
     k = iou.shape[0]
     order = torch.arange(k, device=iou.device)
     over = (iou > iou_thresh) & (order[:, None] < order[None, :])
     keep = valid
     for _ in range(k):
         nxt = valid & ~(over & keep[:, None]).any(dim=0)
+        count("host_syncs")
         if torch.equal(nxt, keep):
             break
         keep = nxt

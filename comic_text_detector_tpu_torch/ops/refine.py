@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from comic_text_detector_tpu_torch.constants import REFINEMASK_INPAINT
 from comic_text_detector_tpu_torch.ops.cc_kernels import cc_ids_windows_local
+from comic_text_detector_tpu_torch.utils.profiling import count
 
 S = 256  # the smallest bucket's side
 CAP = 2048  # default per-window component capacity
@@ -136,6 +137,7 @@ def _cumsum_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _to(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    count("host_syncs")  # a blocking copy from pageable memory: waits for the stream
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from comic_text_detector_tpu_torch.utils.profiling import count
+
 # --- cv2 bit-exact uint8 bilinear ------------------------------------------------
 #
 # cv2.resize(..., INTER_LINEAR) on uint8 runs in 11-bit fixed point: per-axis
@@ -89,6 +91,7 @@ def resize_cv2exact_u8(img_u8: torch.Tensor, out_hw: Tuple[int, int]) -> torch.T
     sy, b0, b1 = _cv2_linear_coefs(oh, h)
 
     def t(a):
+        count("host_syncs")  # a blocking copy from pageable memory: waits for the stream
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     sx, sy = t(sx).long(), t(sy).long()

@@ -9,7 +9,9 @@ blocks and lines, and the masks are refined on the host or, with
 ``refine_backend="device"``, in one ``refine_pages`` call per page shape.
 :meth:`BatchTextDetector.stream` reads pages from an iterable in a producer
 thread and keeps batches in flight, so that the next batch is uploaded and
-enqueued while the host finishes the previous one.
+enqueued while the host finishes the previous one.  Its stages are spans
+of ``utils/profiling.py`` (``wait``; ``submit`` and ``collect`` with their
+children), one unit a batch.
 
 With ``mesh=`` (``parallel.mesh.make_mesh(devices=...)``, one process)
 the detector keeps one replica of the net on each mesh device and splits
@@ -61,12 +63,23 @@ from comic_text_detector_tpu_torch.postproc.textblock import group_output
 from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
 from comic_text_detector_tpu_torch.utils.device import resolve_device
 from comic_text_detector_tpu_torch.utils.imgproc import expand_textwindow
+from comic_text_detector_tpu_torch.utils.profiling import new_unit, span, to_host
 
 
 def _on(device: torch.device):
     """Make ``device`` the current CUDA device for the kernels' launches
     (nothing to do on the CPU)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class _Ticket(list):
+    """What :meth:`BatchTextDetector.submit` returns: a (device, block)
+    entry per mesh device that took pages, and the unit id of the batch's
+    spans (``utils/profiling.py``), which ``collect`` takes on."""
+
+    def __init__(self, unit):
+        super().__init__()
+        self.unit = unit
 
 
 class BatchTextDetector:
@@ -143,17 +156,19 @@ class BatchTextDetector:
     @torch.no_grad()
     def submit(self, pages: Sequence[np.ndarray]):
         """Upload, letterbox and run one batch of pages (``stream`` sends
-        ``batch_size`` at a time); returns an opaque ticket for :meth:`collect`.  The outputs
+        ``batch_size`` at a time); returns an opaque ticket for :meth:`collect`,
+        which carries the batch's unit id for the spans.  The outputs
         stay on the device until ``collect`` downloads them.  Under a mesh
         each device takes a contiguous block of ``ceil(n / d)`` pages."""
-        per = -(-len(pages) // len(self.replicas))
-        tickets = []
-        for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
-            block = list(pages[i * per:(i + 1) * per])
-            if block:
-                with _on(device):
-                    tickets.append((device, self._submit_block(block, model, device)))
-        return tickets
+        ticket = _Ticket(new_unit())
+        with span("submit", ticket.unit):
+            per = -(-len(pages) // len(self.replicas))
+            for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
+                block = list(pages[i * per:(i + 1) * per])
+                if block:
+                    with _on(device):
+                        ticket.append((device, self._submit_block(block, model, device)))
+        return ticket
 
     def _submit_block(self, pages: List[np.ndarray], model, device: torch.device):
         size = self.size
@@ -161,34 +176,41 @@ class BatchTextDetector:
         for img in pages:
             im_h, im_w = img.shape[:2]
             _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
-            orig = self._upload(img, device)  # one upload serves letterbox AND refine
+            with span("upload"):
+                orig = self._upload(img, device)  # one upload serves letterbox AND refine
             origs.append(orig)
-            lbs.append(letterbox_device_u8(orig, size))
+            with span("letterbox"):
+                lbs.append(letterbox_device_u8(orig, size))
             metas.append((im_h, im_w, dw, dh))
-        blks, mask, lines = run_net(model, torch.stack(lbs))
-        nms = [nms_single(b.to(torch.float32), self.conf_thresh, self.nms_thresh) for b in blks]
-        rows = torch.stack([r for r, _ in nms])
-        counts = torch.stack([c for _, c in nms])
-        masks_full = mask_to_u8(mask[:, 0])
-        # the shrink maps are a page-strided view of the DB head's (B, 2, S, S)
-        # output: K6 binarizes them in place, with no copy
-        boxes, scores, valid = db_decode_batch(lines[:, 0], self.db_thresh)
+        with span("net"):
+            blks, mask, lines = run_net(model, torch.stack(lbs))
+        with span("nms"):
+            nms = [nms_single(b.to(torch.float32), self.conf_thresh, self.nms_thresh) for b in blks]
+            rows = torch.stack([r for r, _ in nms])
+            counts = torch.stack([c for _, c in nms])
+        with span("finalize"):
+            masks_full = mask_to_u8(mask[:, 0])
+        with span("decode"):
+            # the shrink maps are a page-strided view of the DB head's (B, 2, S, S)
+            # output: K6 binarizes them in place, with no copy
+            boxes, scores, valid = db_decode_batch(lines[:, 0], self.db_thresh)
 
-        mask_devs = None
-        if self.refine_backend == "device" or self.mask_transfer == "packed":
-            # the page-resolution grey masks, cv2-exact: the device refine
-            # reads them, and packed mode ships them binarised at > 30
-            mask_devs = [
-                resize_cv2exact_u8(masks_full[i, : size - dh, : size - dw], (im_h, im_w))
-                for i, (im_h, im_w, dw, dh) in enumerate(metas)
-            ]
-        if self.mask_transfer == "packed":
-            masks_out = [packbits_rows(m > 30) for m in mask_devs]
-        else:
-            # crop to the batch's shared content region before the download
-            min_dh = min(m[3] for m in metas)
-            min_dw = min(m[2] for m in metas)
-            masks_out = masks_full[:, : size - min_dh, : size - min_dw]
+        with span("resize"):
+            mask_devs = None
+            if self.refine_backend == "device" or self.mask_transfer == "packed":
+                # the page-resolution grey masks, cv2-exact: the device refine
+                # reads them, and packed mode ships them binarised at > 30
+                mask_devs = [
+                    resize_cv2exact_u8(masks_full[i, : size - dh, : size - dw], (im_h, im_w))
+                    for i, (im_h, im_w, dw, dh) in enumerate(metas)
+                ]
+            if self.mask_transfer == "packed":
+                masks_out = [packbits_rows(m > 30) for m in mask_devs]
+            else:
+                # crop to the batch's shared content region before the download
+                min_dh = min(m[3] for m in metas)
+                min_dw = min(m[2] for m in metas)
+                masks_out = masks_full[:, : size - min_dh, : size - min_dw]
         outputs = (rows, counts, masks_out, boxes, scores, valid)
         extras = (origs, mask_devs) if self.refine_backend == "device" else None
         return outputs, metas, pages, extras
@@ -204,34 +226,38 @@ class BatchTextDetector:
         refine its mask; returns [(mask, mask_refined, blk_list)] in page
         order."""
         out = []
-        for device, block in ticket:
-            with _on(device):
-                out += self._collect_block(block, refine_mode, keep_undetected_mask)
+        with span("collect", ticket.unit):
+            for device, block in ticket:
+                with _on(device):
+                    out += self._collect_block(block, refine_mode, keep_undetected_mask)
         return out
 
     def _collect_block(self, ticket, refine_mode: int, keep_undetected_mask: bool):
         outputs, metas, pages, extras = ticket
         size = self.size
         rows, counts, masks_out, dboxes, dscores, dvalid = outputs
-        if isinstance(masks_out, list):
-            masks_out = [m.cpu().numpy() for m in masks_out]
-        else:
-            masks_out = masks_out.cpu().numpy()
-        rows, counts, dboxes, dscores, dvalid = (t.cpu().numpy() for t in (rows, counts, dboxes, dscores, dvalid))
-        staged = []
-        for i in range(len(pages)):
-            im_h, im_w, dw, dh = metas[i]
-            resize_ratio = (im_w / (size - dw), im_h / (size - dh))
-            blks = postprocess_yolo(rows[i], int(counts[i]), resize_ratio)
-            lines = scale_lines(dboxes[i], dscores[i], dvalid[i], size, self.box_thresh, resize_ratio)
-            if self.mask_transfer == "packed":
-                mask = unpack_rows(masks_out[i], im_w)
+        with span("download"):
+            if isinstance(masks_out, list):
+                masks_out = [to_host(m) for m in masks_out]
             else:
-                mask = resize_bilinear_fast(masks_out[i][: size - dh, : size - dw], (im_h, im_w))
-            staged.append((mask, group_output(blks, lines, im_w, im_h, mask)))
+                masks_out = to_host(masks_out)
+            rows, counts, dboxes, dscores, dvalid = (to_host(t) for t in (rows, counts, dboxes, dscores, dvalid))
+        staged = []
+        with span("group"):
+            for i in range(len(pages)):
+                im_h, im_w, dw, dh = metas[i]
+                resize_ratio = (im_w / (size - dw), im_h / (size - dh))
+                blks = postprocess_yolo(rows[i], int(counts[i]), resize_ratio)
+                lines = scale_lines(dboxes[i], dscores[i], dvalid[i], size, self.box_thresh, resize_ratio)
+                if self.mask_transfer == "packed":
+                    mask = unpack_rows(masks_out[i], im_w)
+                else:
+                    mask = resize_bilinear_fast(masks_out[i][: size - dh, : size - dw], (im_h, im_w))
+                staged.append((mask, group_output(blks, lines, im_w, im_h, mask)))
 
         if self.refine_backend == "device":
-            tickets = self._submit_refines(extras, pages, [bl for _, bl in staged], refine_mode)
+            with span("refine"):
+                tickets = self._submit_refines(extras, pages, [bl for _, bl in staged], refine_mode)
 
         out = []
         for i, page in enumerate(pages):
@@ -243,9 +269,10 @@ class BatchTextDetector:
                         tickets[i], mask_refined, mask, blk_list, page.shape, refine_mode
                     )
             else:
-                mask_refined = refine_mask(page, mask, blk_list, refine_mode=refine_mode)
-                if keep_undetected_mask:
-                    mask_refined = refine_undetected_mask(page, mask, mask_refined, blk_list, refine_mode)
+                with span("refine"):
+                    mask_refined = refine_mask(page, mask, blk_list, refine_mode=refine_mode)
+                    if keep_undetected_mask:
+                        mask_refined = refine_undetected_mask(page, mask, mask_refined, blk_list, refine_mode)
             out.append((mask, mask_refined, blk_list))
         return out
 
@@ -278,9 +305,10 @@ class BatchTextDetector:
 
     def _finish_refine(self, ticket) -> np.ndarray:
         packed, _canvases, _imgs, _masks, gi, shape, fetch_cache = ticket
-        if "host" not in fetch_cache:
-            fetch_cache["host"] = packed.cpu().numpy()
-        return unpack_rows(fetch_cache["host"][gi], shape[1])
+        with span("fetch"):
+            if "host" not in fetch_cache:
+                fetch_cache["host"] = to_host(packed)
+            return unpack_rows(fetch_cache["host"][gi], shape[1])
 
     def _rescue_undetected(self, ticket, refined, raw_mask, blk_list, img_shape, refine_mode):
         """keep_undetected_mask for the batch path: the single page's rescue
@@ -291,7 +319,7 @@ class BatchTextDetector:
         )
         if extra is None:
             return refined
-        extra_host = unpack_rows(packbits_rows(extra > 0).cpu().numpy(), shape[1])
+        extra_host = unpack_rows(to_host(packbits_rows(extra > 0)), shape[1])
         return np.where(extra_host > 0, np.uint8(255), refined)
 
     def process_batch(
@@ -338,7 +366,8 @@ class BatchTextDetector:
         in_flight: deque = deque()
         depth = max(1, prefetch)
         while True:
-            chunk = q.get()
+            with span("wait"):
+                chunk = q.get()
             if chunk is stop:
                 break
             in_flight.append(self.submit(chunk))

@@ -8,7 +8,9 @@ un-letterbox of the grey mask to page resolution (cv2-exact, the JAX
 package's ``_upsample_mask``).  With ``mask_transfer="grey"`` the mask comes
 back at letterbox resolution and the host resizes it to the page as the JAX
 package does (``ops/resize.py::resize_bilinear_fast``).  The host then
-groups blocks and lines.  The mask is refined on the host
+groups blocks and lines (each stage a span of ``utils/profiling.py``: ``page``
+with ``step``, ``download``, ``group``, ``refine``, ``fetch``, one unit a
+request).  The mask is refined on the host
 (``refine_backend="host"``, the default) or on the device (``"device"``:
 ``ops/refine.py``, reading the page and the page-resolution grey mask the
 device step already holds).  With ``mask_transfer="packed"`` (device refine
@@ -45,6 +47,7 @@ from comic_text_detector_tpu_torch.ops.resize import (
 from comic_text_detector_tpu_torch.postproc.textblock import TextBlock, group_output
 from comic_text_detector_tpu_torch.postproc.textmask import refine_mask, refine_undetected_mask
 from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.utils.profiling import count, new_unit, span, to_host
 from comic_text_detector_tpu_torch.utils.serialization import msgpack_restore, to_bytes
 from comic_text_detector_tpu_torch.utils.imgproc import (
     connected_components_with_stats,
@@ -243,19 +246,28 @@ class TextDetector:
         size = self.input_size[0]
         im_h, im_w = img.shape[:2]
         _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
-        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        blks, mask, lines = run_net(self.model, letterbox_device_u8(img_dev, size)[None])
-        rows, count = nms_single(blks[0].to(torch.float32), self.conf_thresh, self.nms_thresh)
-        mask_full = mask_to_u8(mask[0, 0])
-        boxes, scores, valid = db_decode_full_device(lines[0, 0].to(torch.float32), self.db_thresh)
-        mask_page = None
-        if self.refine_backend == "device" or self.mask_transfer == "packed":
-            mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
-        if self.mask_transfer == "packed":
-            mask_out = packbits_rows(mask_page > 30)
-        else:
-            mask_out = mask_full[: size - dh, : size - dw]
-        return rows, count, mask_out, boxes, scores, valid, img_dev, mask_page
+        with span("upload"):
+            count("host_syncs")  # a blocking copy from pageable memory: waits for the stream
+            img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        with span("letterbox"):
+            lb = letterbox_device_u8(img_dev, size)[None]
+        with span("net"):
+            blks, mask, lines = run_net(self.model, lb)
+        with span("nms"):
+            rows, n_rows = nms_single(blks[0].to(torch.float32), self.conf_thresh, self.nms_thresh)
+        with span("finalize"):
+            mask_full = mask_to_u8(mask[0, 0])
+        with span("decode"):
+            boxes, scores, valid = db_decode_full_device(lines[0, 0].to(torch.float32), self.db_thresh)
+        with span("resize"):
+            mask_page = None
+            if self.refine_backend == "device" or self.mask_transfer == "packed":
+                mask_page = resize_cv2exact_u8(mask_full[: size - dh, : size - dw], (im_h, im_w))
+            if self.mask_transfer == "packed":
+                mask_out = packbits_rows(mask_page > 30)
+            else:
+                mask_out = mask_full[: size - dh, : size - dw]
+        return rows, n_rows, mask_out, boxes, scores, valid, img_dev, mask_page
 
     def __call__(
         self,
@@ -263,28 +275,36 @@ class TextDetector:
         refine_mode: int = C.REFINEMASK_INPAINT,
         keep_undetected_mask: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray, List[TextBlock]]:
+        with span("page", new_unit()):
+            return self._page(img, refine_mode, keep_undetected_mask)
+
+    def _page(self, img: np.ndarray, refine_mode: int, keep_undetected_mask: bool):
         im_h, im_w = img.shape[:2]
         size = self.input_size[0]
         _, _, dw, dh, _ = letterbox_shape(im_h, im_w, size)
-        *host_out, img_dev, mask_dev = self._device_step(img)
-        rows, count, mask_out, dboxes, dscores, dvalid = (t.cpu().numpy() for t in host_out)
-        if self.mask_transfer == "packed":
-            mask = unpack_rows(mask_out, im_w)
-        else:
-            mask = resize_bilinear_fast(mask_out, (im_h, im_w))
+        with span("step"):
+            *host_out, img_dev, mask_dev = self._device_step(img)
+        with span("download"):
+            rows, n_rows, mask_out, dboxes, dscores, dvalid = (to_host(t) for t in host_out)
 
-        resize_ratio = (im_w / (size - dw), im_h / (size - dh))
-        blks = postprocess_yolo(rows, int(count), resize_ratio)
-        lines = scale_lines(dboxes, dscores, dvalid, size, self.box_thresh, resize_ratio)
-        blk_list = group_output(blks, lines, im_w, im_h, mask)
+        with span("group"):
+            if self.mask_transfer == "packed":
+                mask = unpack_rows(mask_out, im_w)
+            else:
+                mask = resize_bilinear_fast(mask_out, (im_h, im_w))
+            resize_ratio = (im_w / (size - dw), im_h / (size - dh))
+            blks = postprocess_yolo(rows, int(n_rows), resize_ratio)
+            lines = scale_lines(dboxes, dscores, dvalid, size, self.box_thresh, resize_ratio)
+            blk_list = group_output(blks, lines, im_w, im_h, mask)
         if self.refine_backend == "device":
             mask_refined = _refine_on_device(
                 img_dev, mask_dev, blk_list, img.shape, refine_mode, mask if keep_undetected_mask else None
             )
         else:
-            mask_refined = refine_mask(img, mask, blk_list, refine_mode=refine_mode)
-            if keep_undetected_mask:
-                mask_refined = refine_undetected_mask(img, mask, mask_refined, blk_list, refine_mode=refine_mode)
+            with span("refine"):
+                mask_refined = refine_mask(img, mask, blk_list, refine_mode=refine_mode)
+                if keep_undetected_mask:
+                    mask_refined = refine_undetected_mask(img, mask, mask_refined, blk_list, refine_mode=refine_mode)
         return mask, mask_refined, blk_list
 
 
@@ -295,7 +315,7 @@ def unpack_rows(packed: np.ndarray, width: int) -> np.ndarray:
 
 def _download_canvas(canvas: torch.Tensor, im_w: int) -> np.ndarray:
     """Binary canvas -> host 0/255 uint8, shipped 1 bit a pixel."""
-    return unpack_rows(packbits_rows(canvas > 0).cpu().numpy(), im_w)
+    return unpack_rows(to_host(packbits_rows(canvas > 0)), im_w)
 
 
 def _refine_on_device(img_dev, mask_dev, blk_list, img_shape, refine_mode, undetected_mask=None) -> np.ndarray:
@@ -303,17 +323,19 @@ def _refine_on_device(img_dev, mask_dev, blk_list, img_shape, refine_mode, undet
     the page-resolution grey mask are already on the device, and every
     block window refines in batched dispatches (``ops/refine.py``)."""
     im_w = img_shape[1]
-    windows = [expand_textwindow(img_shape, blk.xyxy, expand_r=16) for blk in blk_list]
-    canvas = refine_page(img_dev, mask_dev, np.asarray(windows).reshape(-1, 4), refine_mode)
-    if undetected_mask is not None:
-        refined_orig = _download_canvas(canvas, im_w)
-        extra = _rescue_undetected_device(
-            img_dev, mask_dev, canvas, refined_orig, undetected_mask, blk_list, img_shape, refine_mode
-        )
-        if extra is None:
-            return refined_orig
-        canvas = canvas | extra
-    return _download_canvas(canvas, im_w)
+    with span("refine"):
+        windows = [expand_textwindow(img_shape, blk.xyxy, expand_r=16) for blk in blk_list]
+        canvas = refine_page(img_dev, mask_dev, np.asarray(windows).reshape(-1, 4), refine_mode)
+        if undetected_mask is not None:
+            refined_orig = _download_canvas(canvas, im_w)
+            extra = _rescue_undetected_device(
+                img_dev, mask_dev, canvas, refined_orig, undetected_mask, blk_list, img_shape, refine_mode
+            )
+            if extra is None:
+                return refined_orig
+            canvas = canvas | extra
+    with span("fetch"):
+        return _download_canvas(canvas, im_w)
 
 
 def _rescue_undetected_device(

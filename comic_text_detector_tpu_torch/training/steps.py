@@ -23,6 +23,9 @@ builds, on ``torch.optim``:
   mini-steps' gradients and applies the inner update every k-th call, the
   only calls that advance the inner count (and the schedule).
 
+Each train step is a span of ``utils/profiling.py`` (``train``, one unit a
+mini-step, with ``forward``, ``loss``, ``backward`` and ``update``).
+
 Float32 convolutions run without TF32 and only through cuDNN's
 deterministic algorithms, so that a step repeats bit for bit on the card.
 
@@ -58,6 +61,7 @@ from comic_text_detector_tpu_torch.parallel.mesh import Mesh, shard_batch
 from comic_text_detector_tpu_torch.training import losses
 from comic_text_detector_tpu_torch.training.yolo_loss import yolo_loss
 from comic_text_detector_tpu_torch.utils.device import resolve_device
+from comic_text_detector_tpu_torch.utils.profiling import new_unit, span
 
 Schedule = Callable[[int], float]
 
@@ -265,10 +269,12 @@ def _sharded(state: TrainState, mesh: Optional[Mesh], n: int) -> Iterator[_Shard
 
 
 def _update(state: TrainState, loss: torch.Tensor, group=None) -> None:
-    state.optimizer.zero_grad()
-    loss.backward()
-    sum_grads(state.optimizer.params, group)
-    state.optimizer.step()
+    with span("backward"):
+        state.optimizer.zero_grad()
+        loss.backward()
+    with span("update"):
+        sum_grads(state.optimizer.params, group)
+        state.optimizer.step()
     state.step += 1
 
 
@@ -279,9 +285,11 @@ def seg_train_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor,
     ``imgs`` and ``masks`` are the global batch (see the module
     docstring)."""
     state.model.train()
-    with _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
-        pred = state.model(_as_float_img(shard.take(imgs)))
-        loss = losses.binary_dice_loss(pred[:, 0], _as_float_mask(shard.take(masks)), mesh=shard.loss_mesh)
+    with span("train", new_unit()), _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
+        with span("forward"):
+            pred = state.model(_as_float_img(shard.take(imgs)))
+        with span("loss"):
+            loss = losses.binary_dice_loss(pred[:, 0], _as_float_mask(shard.take(masks)), mesh=shard.loss_mesh)
         _update(state, loss, shard.group)
     return {"loss": loss.detach()}
 
@@ -303,10 +311,12 @@ def db_train_step(state: TrainState, batch: Dict[str, torch.Tensor], use_bce: bo
     threshold_mask (B, H, W).  Returns the loss terms as device scalars.
     Under a ``mesh``, ``batch`` is the global batch."""
     state.model.train()
-    with _sharded(state, mesh, batch["imgs"].shape[0]) as shard, _cudnn():
-        batch = {k: shard.take(v) for k, v in batch.items()}
-        pred = state.model(_as_float_img(batch["imgs"]))
-        metrics = losses.db_loss(pred, batch, use_bce=use_bce, mesh=shard.loss_mesh)
+    with span("train", new_unit()), _sharded(state, mesh, batch["imgs"].shape[0]) as shard, _cudnn():
+        with span("forward"):
+            batch = {k: shard.take(v) for k, v in batch.items()}
+            pred = state.model(_as_float_img(batch["imgs"]))
+        with span("loss"):
+            metrics = losses.db_loss(pred, batch, use_bce=use_bce, mesh=shard.loss_mesh)
         _update(state, metrics["loss"], shard.group)
     return {k: v.detach() for k, v in metrics.items()}
 
@@ -336,9 +346,12 @@ def yolo_train_step(state: TrainState, imgs: torch.Tensor, labels: torch.Tensor,
     (defaults 0.05, 1.0, 0.3).  Returns the loss terms as device scalars.
     Under a ``mesh`` the three arrays are the global batch."""
     state.model.train()
-    with _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
-        raw, _ = state.model(_as_float_img(shard.take(imgs)), decode=False)
-        metrics = _yolo_loss(state.model, raw, shard.take(labels), shard.take(label_mask), gains, shard.loss_mesh)
+    with span("train", new_unit()), _sharded(state, mesh, imgs.shape[0]) as shard, _cudnn():
+        with span("forward"):
+            raw, _ = state.model(_as_float_img(shard.take(imgs)), decode=False)
+        with span("loss"):
+            metrics = _yolo_loss(state.model, raw, shard.take(labels), shard.take(label_mask), gains,
+                                 shard.loss_mesh)
         _update(state, metrics["loss"], shard.group)
     return {k: v.detach() for k, v in metrics.items()}
 

@@ -18,10 +18,11 @@ into ``tmp_path``:
   ``postprocess_mask`` equal;
 * ``random_init`` (both detectors): shapes and dtypes of one run, the same
   weights for the same seed, others for another;
-* ``StageTimer`` on the CPU;
+* the span recorder (``utils/profiling.py``) on the CPU;
 * the CLI: ``detect``, ``annotate`` and ``export`` through
   ``main([..., "--device", "cpu"])`` equal to direct calls, and its
-  commands and options those of the JAX ``cli.main`` plus ``--device``.
+  commands and options those of the JAX ``cli.main`` plus ``--device``
+  (and ``--trace`` on ``detect`` and ``annotate``).
 """
 
 import argparse
@@ -265,30 +266,24 @@ def test_compute_dtype_matches_half(port_det):
 
 
 def test_stage_timer_on_cpu():
-    from comic_text_detector_tpu_torch.utils.profiling import StageTimer, trace
+    """The span recorder that replaced ``StageTimer``: named stages, their
+    nesting, host time and counters, on the CPU."""
+    from comic_text_detector_tpu_torch.utils import profiling
 
-    timer = StageTimer(device="cpu")
-    for _ in range(3):
-        with timer.stage("a"):
-            sum(range(10000))
-    with timer.stage("b"):
-        pass
-    summary = timer.summary()
-    assert set(summary) == {"a", "b"}
-    assert summary["a"]["count"] == 3 and summary["b"]["count"] == 1
-    assert summary["a"]["total_s"] > 0 and "a" in timer.report() and "mean ms" in timer.report()
-    with trace("span"):
-        pass
-
-
-def test_device_trace_writes_a_trace(tmp_path):
-    from comic_text_detector_tpu_torch.utils.profiling import device_trace, trace
-
-    with device_trace(str(tmp_path)):
-        with trace("ctd_span"):
-            torch.ones(8).sum()
-    written = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
-    assert written and "ctd_span" in open(os.path.join(tmp_path, written[0])).read()
+    profiling.enable()
+    try:
+        for _ in range(3):
+            with profiling.span("a", profiling.new_unit()):
+                sum(range(10000))
+                with profiling.span("b"):
+                    profiling.count("n", 2)
+    finally:
+        got = profiling.disable()
+    assert [s.name for s in got.spans] == ["a", "b"] * 3
+    assert [s.unit for s in got.spans] == [0, 0, 1, 1, 2, 2]
+    assert got.paths()[:2] == ["a", "a/b"]
+    assert all(s.end_ns > s.start_ns for s in got.spans)
+    assert [s.counts for s in got.spans[:2]] == [{}, {"n": 2}]
 
 
 def test_cli_detect_matches_direct_call(port_det, page_dir, tmp_path):
@@ -386,4 +381,7 @@ def test_cli_commands_and_options_match_jax():
     for name in theirs:
         extra = {k: v for k, v in ours[name].items() if k not in theirs[name]}
         assert {k: v for k, v in ours[name].items() if k in theirs[name]} == theirs[name], name
-        assert extra == ({} if name == "render" else {("--device",): (False, "cuda", None, None)}), name
+        want = {} if name == "render" else {("--device",): (False, "cuda", None, None)}
+        if name in ("annotate", "detect"):
+            want[("--trace",)] = (False, None, None, None)
+        assert extra == want, name
