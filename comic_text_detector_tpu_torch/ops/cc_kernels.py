@@ -279,6 +279,15 @@ def cc_ids_fused(masks_u8: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cc_ids_fused_into(masks_u8: torch.Tensor, parent: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
+                      err: torch.Tensor) -> None:
+    """K1 into the caller's buffers (as :func:`launch_cc_ids_window` takes
+    them), enqueued without reading ``err``: the caller reads it once for
+    all its launches.  Counted in ``cc_ids_fused.launches``."""
+    launch_cc_ids_window(masks_u8, parent, counts, out, err)
+    cc_ids_fused.launches += 1
+
+
 cc_windows_local.launches = 0
 min_prop_windows_local.launches = 0
 cc_ids_fused.launches = 0

@@ -25,7 +25,7 @@ from typing import Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("cc.cu", "finalize.cu", "scan.cu", "morph.cu")
+SOURCES = ("cc.cu", "finalize.cu", "scan.cu", "morph.cu", "refine.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -23,8 +23,20 @@ the original page resolution:
 Bit-equality with the JAX package on the CPU rests on doing each float32
 operation as XLA's CPU backend does it: XLA contracts ``a * b + c`` into a
 fused multiply-add (one rounding), which :func:`_fma` reproduces exactly,
-and it sums the Otsu cumsum in blocks of 16 (:func:`_cumsum_f32`).  The
-same code runs on the card, so the card's result is the CPU's.
+and it sums the Otsu cumsum in blocks of 16 (:func:`_cumsum_f32`).
+
+Two routes, chosen by the tensors' device.  On the CPU :func:`refine_pages`
+runs the plain PyTorch ops above (:func:`_refine_windows`), one dispatch
+per ``slots`` windows of a bucket.  On the card it runs the hand-written
+stages of ``csrc/refine.cu`` (:func:`_refine_pages_cuda`): the host builds
+one table of every window of the call in NumPy (:func:`window_table`: box,
+bucket, sampling grid, in-window rectangle, where each window's state
+lives), uploads it in one pinned copy, and about twenty launches refine all
+windows at once, K1 labelling between them; each stage repeats the plain
+ops' arithmetic with explicit rounding, so the card's canvases are the
+CPU's byte for byte.  Nothing is read back there: K1's loop-bound flags
+are OR-ed into one device word that reaches pinned host memory with the
+stream, and :func:`check_bounds` reads it after the canvas's download.
 
 Window boxes stay on the host (NumPy) for grouping, slicing and sampling
 coordinates, so no value is read back from the device per window.
@@ -32,15 +44,23 @@ coordinates, so no value is read back from the device per window.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from comic_text_detector_tpu_torch.constants import REFINEMASK_INPAINT
-from comic_text_detector_tpu_torch.ops.cc_kernels import cc_ids_windows_local
+from comic_text_detector_tpu_torch.ops import cuda_build
+from comic_text_detector_tpu_torch.ops.cc_kernels import (
+    FUSED_IDS_MAX_ELEMS,
+    cc_ids_fused_into,
+    cc_ids_windows_local,
+    ids_chunk_count,
+)
 from comic_text_detector_tpu_torch.utils.profiling import count
 
 S = 256  # the smallest bucket's side
@@ -246,6 +266,33 @@ def paste_windows_exact(
         region |= merged[i]
 
 
+def _paste_coords(box: np.ndarray, x_hi: int, y_hi: int, win_hw, out_hw):
+    """Where a resampled window pastes back: the page region [ry0, ry1) x
+    [rx0, rx1) of its box and, for each of its rows and columns, the 2 taps
+    in the window and the weight of the second, as ((ry0, ry1, rx0, rx1),
+    (y0, y1, fy), (x0, x1, fx)) in float32 NumPy arithmetic; None where the
+    box misses the page."""
+    h, w = out_hw
+    sh, sw = win_hw
+    f32 = np.float32
+    b = np.asarray(box).astype(np.int64)
+    ry0, ry1 = max(b[1], 0), min(b[3], h)
+    rx0, rx1 = max(b[0], 0), min(b[2], w)
+    if ry1 <= ry0 or rx1 <= rx0:
+        return None
+    span_y = np.maximum(f32(y_hi - b[1]), f32(1.0))
+    span_x = np.maximum(f32(x_hi - b[0]), f32(1.0))
+    yy = (np.arange(ry0, ry1, dtype=f32) - f32(b[1]) + f32(0.5)) * f32(sh) / span_y - f32(0.5)
+    xx = (np.arange(rx0, rx1, dtype=f32) - f32(b[0]) + f32(0.5)) * f32(sw) / span_x - f32(0.5)
+    yy = np.clip(yy, f32(0.0), f32(sh - 1.0))
+    xx = np.clip(xx, f32(0.0), f32(sw - 1.0))
+    y0, x0 = np.floor(yy), np.floor(xx)
+    fy, fx = (yy - y0).astype(f32), (xx - x0).astype(f32)
+    y0i, x0i = y0.astype(np.int64), x0.astype(np.int64)
+    y1i, x1i = np.minimum(y0i + 1, sh - 1), np.minimum(x0i + 1, sw - 1)
+    return (int(ry0), int(ry1), int(rx0), int(rx1)), (y0i, y1i, fy), (x0i, x1i, fx)
+
+
 def paste_windows(
     canvas: torch.Tensor, merged: torch.Tensor, boxes: np.ndarray, valid: np.ndarray, page_ids: np.ndarray,
     out_hw,
@@ -253,27 +300,14 @@ def paste_windows(
     """OR (K, sh, sw) uint8 0/255 window masks into ``canvas`` in place,
     resampling each window back to its box (bilinear, > 127).  Only the
     box's own pixels can be set, so only they are computed."""
-    h, w = out_hw
     _, sh, sw = merged.shape
     dev = canvas.device
     x_his, y_his = _ext_hi(boxes, (sh, sw))
-    f32 = np.float32
     for i in np.flatnonzero(valid):
-        b = boxes[i].astype(np.int64)
-        ry0, ry1 = max(b[1], 0), min(b[3], h)
-        rx0, rx1 = max(b[0], 0), min(b[2], w)
-        if ry1 <= ry0 or rx1 <= rx0:
+        at = _paste_coords(boxes[i], x_his[i], y_his[i], (sh, sw), out_hw)
+        if at is None:
             continue
-        span_y = np.maximum(f32(y_his[i] - b[1]), f32(1.0))
-        span_x = np.maximum(f32(x_his[i] - b[0]), f32(1.0))
-        yy = (np.arange(ry0, ry1, dtype=f32) - f32(b[1]) + f32(0.5)) * f32(sh) / span_y - f32(0.5)
-        xx = (np.arange(rx0, rx1, dtype=f32) - f32(b[0]) + f32(0.5)) * f32(sw) / span_x - f32(0.5)
-        yy = np.clip(yy, f32(0.0), f32(sh - 1.0))
-        xx = np.clip(xx, f32(0.0), f32(sw - 1.0))
-        y0, x0 = np.floor(yy), np.floor(xx)
-        fy, fx = (yy - y0).astype(f32), (xx - x0).astype(f32)
-        y0i, x0i = y0.astype(np.int64), x0.astype(np.int64)
-        y1i, x1i = np.minimum(y0i + 1, sh - 1), np.minimum(x0i + 1, sw - 1)
+        (ry0, ry1, rx0, rx1), (y0i, y1i, fy), (x0i, x1i, fx) = at
         mk = merged[i].float()
         r0, r1 = mk[_to(y0i, dev)], mk[_to(y1i, dev)]
         c0, c1 = _to(x0i, dev), _to(x1i, dev)
@@ -669,14 +703,32 @@ def refine_pages(
     window_boxes (N, 4) int xyxy in page coordinates (expanded and clamped),
     page_ids (N,) int, both on the host.  Windows go to the smallest bucket
     that holds them 1:1 (bit-exact against the host merge), resampled only
-    beyond the largest; each bucket's windows, from all pages, run in
-    dispatches of its slot count, padded with degenerate boxes.  Returns
-    (P, H, W) uint8 0/255 canvases, the OR of each page's windows."""
+    beyond the largest.  Returns (P, H, W) uint8 0/255 canvases, the OR of
+    each page's windows.
+
+    On the CPU each bucket's windows, from all pages, run in dispatches of
+    its slot count, padded with degenerate boxes (:func:`_refine_pages_plain`).
+    On the card the call's windows run in one chain of hand-written stages
+    (``csrc/refine.cu``, :func:`_refine_pages_cuda`; one chain a
+    ``_CHAIN_WINDOWS`` windows), byte-equal to the CPU's; its loop-bound flag reaches the host with the canvas, and
+    :func:`check_bounds` reads it after the canvas's download."""
     boxes = np.asarray(window_boxes, np.int32).reshape(-1, 4)
     pids = np.asarray(page_ids, np.int64).reshape(-1)
-    p, h, w = masks.shape
     pad_h = max(bh for bh, _, _, _ in BUCKETS)
     pad_w = max(bw for _, bw, _, _ in BUCKETS)
+    if masks.device.type == "cpu":
+        return _refine_pages_plain(imgs, masks, boxes, pids, refine_mode, (pad_h, pad_w))
+    if masks.device.type != "cuda":
+        raise ValueError(f"refine_pages: unsupported device {masks.device}")
+    return _refine_pages_cuda(imgs, masks, boxes, pids, refine_mode, (pad_h, pad_w))
+
+
+def _refine_pages_plain(imgs, masks, boxes, pids, refine_mode, pad_hw) -> torch.Tensor:
+    """:func:`refine_pages` in plain PyTorch ops (the CPU's route, and the
+    card route's yardstick on any device): each bucket's windows, from all
+    pages, in dispatches of its slot count."""
+    p, h, w = masks.shape
+    pad_h, pad_w = pad_hw
     canvas = torch.zeros((p, h + pad_h, w + pad_w), dtype=torch.uint8, device=masks.device)
 
     groups: dict[int, list[int]] = {}
@@ -705,4 +757,338 @@ def refine_pages(
 def refine_page(img: torch.Tensor, mask: torch.Tensor, window_boxes, refine_mode: int = REFINEMASK_INPAINT):
     """Single-page :func:`refine_pages` (returns the (H, W) canvas)."""
     n = len(np.asarray(window_boxes).reshape(-1, 4))
-    return refine_pages(img[None], mask[None], window_boxes, np.zeros((n,), np.int64), refine_mode)[0]
+    canvases = refine_pages(img[None], mask[None], window_boxes, np.zeros((n,), np.int64), refine_mode)
+    return _carry_flag(canvases, canvases[0])
+
+
+# ---------------------------------------------------------------------------
+# The card's route: the windows of a call in one chain of stages
+# ---------------------------------------------------------------------------
+
+# Columns of a window's row in the table (enum Col in csrc/refine.cu).
+_TABLE_COLS = (
+    "page", "x0", "y0", "x1", "y1", "sh", "sw", "ny", "nx", "plane_h", "stride", "exact", "cap", "px",
+    "cand", "cand_step", "rows", "cols", "acc", "paste_rows", "paste_cols", "ry0", "ry1", "rx0", "rx1",
+)
+_COL = {name: i for i, name in enumerate(_TABLE_COLS)}
+_TILE = 32  # a block's tile of a window plane (kTile)
+_ACC_HEADER = 1536  # a window's accumulator words before its component sums (kHeader)
+_ACC_BASE = 64  # words before the first window's accumulators; word 0 is K1's loop-bound flag
+_ALIGN = 256  # bytes: every buffer of the scratch starts on this
+# windows a chain at most: bounds a chain's scratch (about 50 bytes a plane
+# pixel, 1.7 GB at 128 windows of 512 x 512) and keeps the table's offsets
+# in int32; a stream batch's calls hold 3-12 windows
+_CHAIN_WINDOWS = 128
+
+
+class WindowTable(NamedTuple):
+    """The table of windows of one :func:`refine_pages` call on the card.
+
+    ``data`` is the one int32 upload: ``rows`` (one row of ``_TABLE_COLS``
+    a window, in K1-group order; ``index`` maps each row to its box), then
+    ``tile_start`` (each window's first tile, and the total), ``resampled``
+    (the rows of the resampled windows), ``coords`` (each window's
+    sampling rows and columns, then a resampled window's paste rows and
+    columns, as (i0, i1, float32 bits of frac) triples).  ``offsets`` are
+    the int32 offsets of the last three sections in ``data``.  ``groups``
+    are the K1 launches: (plane_h, stride, windows, first plane pixel) each;
+    a group's candidate planes start at 4 x its first plane pixel.
+    ``n_px`` is the pixels of all planes, ``acc_words`` the accumulators'
+    int32 words."""
+
+    data: np.ndarray
+    rows: np.ndarray
+    index: np.ndarray
+    tile_start: np.ndarray
+    resampled: np.ndarray
+    coords: np.ndarray
+    offsets: Tuple[int, int, int]
+    groups: Tuple[Tuple[int, int, int, int], ...]
+    n_px: int
+    acc_words: int
+
+
+def _triples(i0: np.ndarray, i1: np.ndarray, frac: np.ndarray) -> np.ndarray:
+    """(..., n) taps and float32 weights -> (..., 3n) int32 (i0, i1, frac bits)."""
+    out = np.stack([i0.astype(np.int32), i1.astype(np.int32), frac.astype(np.float32).view(np.int32)], axis=-1)
+    return out.reshape(*out.shape[:-2], -1)
+
+
+def window_table(window_boxes, page_ids, page_hw) -> WindowTable:
+    """Build the card route's table for one :func:`refine_pages` call, in
+    NumPy: boxes and page ids as ``refine_pages`` takes them, ``page_hw``
+    the pages' (H, W).
+
+    Each window takes the bucket :func:`_bucket_index` gives (the last
+    one, resampled, beyond every bucket), its sampling grid from
+    :func:`_sample_coords` and its in-window rectangle as
+    :func:`_in_window` gives it.  Buckets join K1 groups in ``BUCKETS``
+    order, each the first group whose common plane stays within K1's
+    512 x 512 (one group for the buckets up to 512 x 512); a window sits at
+    the top-left of its group's plane."""
+    h, w = page_hw
+    boxes = np.asarray(window_boxes, np.int32).reshape(-1, 4)
+    pids = np.asarray(page_ids, np.int64).reshape(-1)
+    buckets = np.asarray([_bucket_index(int(x2 - x1), int(y2 - y1)) for x1, y1, x2, y2 in boxes], np.int64)
+    slots = np.where(buckets < 0, len(BUCKETS) - 1, buckets)
+    shapes: list = []
+    group_of: dict = {}
+    for s in sorted(set(slots.tolist())):
+        bh, bw = BUCKETS[s][:2]
+        for gi, (gh, gw) in enumerate(shapes):
+            if max(gh, bh) * max(gw, bw) <= FUSED_IDS_MAX_ELEMS:
+                shapes[gi] = (max(gh, bh), max(gw, bw))
+                group_of[s] = gi
+                break
+        else:
+            if bh * bw > FUSED_IDS_MAX_ELEMS:
+                raise ValueError(f"window_table: bucket {bh}x{bw} exceeds K1's 512*512 elements")
+            group_of[s] = len(shapes)
+            shapes.append((bh, bw))
+    grp = np.asarray([group_of[s] for s in slots.tolist()], np.int64)
+    index = np.argsort(grp, kind="stable")
+    n = len(index)
+    b = boxes[index].astype(np.int64)
+    slot, grp = slots[index], grp[index]
+    spec = np.asarray(BUCKETS, np.int64)
+    sh, sw, cap = spec[slot, 0], spec[slot, 1], spec[slot, 3]
+    plane_hw = np.asarray(shapes, np.int64).reshape(-1, 2)[grp]
+    plane = plane_hw[:, 0] * plane_hw[:, 1]
+    px = np.cumsum(plane) - plane
+    rows = np.zeros((n, len(_TABLE_COLS)), np.int64)
+    for name, col in (("page", pids[index]), ("x0", b[:, 0]), ("y0", b[:, 1]), ("x1", b[:, 2]), ("y1", b[:, 3]),
+                      ("sh", sh), ("sw", sw), ("plane_h", plane_hw[:, 0]), ("stride", plane_hw[:, 1]),
+                      ("exact", buckets[index] >= 0), ("cap", cap), ("px", px),
+                      ("acc", _ACC_BASE + np.cumsum(_ACC_HEADER + 6 * cap) - (_ACC_HEADER + 6 * cap))):
+        rows[:, _COL[name]] = col
+    # the in-window rectangle (_in_window): rows dy < y1 - y0, all where the box is taller than the window
+    for lo, hi, size, col in ((1, 3, sh, "ny"), (0, 2, sw, "nx")):
+        ext = b[:, hi] - b[:, lo]
+        rows[:, _COL[col]] = np.where(ext > size, size, np.clip(ext, 0, size))
+    groups = []
+    for gi in range(len(shapes)):
+        members = np.flatnonzero(grp == gi)
+        first, k = int(px[members[0]]), len(members)
+        rows[members, _COL["cand"]] = 4 * first + np.arange(k) * plane[members]
+        rows[members, _COL["cand_step"]] = k * plane[members]
+        groups.append((int(plane_hw[members[0], 0]), int(plane_hw[members[0], 1]), k, first))
+    tiles = -(-plane_hw[:, 0] // _TILE) * -(-plane_hw[:, 1] // _TILE)
+    tile_start = np.concatenate([[0], np.cumsum(tiles)])
+
+    parts, used = [], 0
+    for s in np.unique(slot):
+        at = np.flatnonzero(slot == s)
+        bh, bw = BUCKETS[s][:2]
+        x_hi, y_hi = _ext_hi(b[at], (bh, bw))
+        sampled = np.concatenate([_triples(*_sample_coords(b[at, 1], y_hi, h, bh)),
+                                  _triples(*_sample_coords(b[at, 0], x_hi, w, bw))], axis=1)
+        rows[at, _COL["rows"]] = used + np.arange(len(at)) * sampled.shape[1]
+        rows[at, _COL["cols"]] = rows[at, _COL["rows"]] + 3 * bh
+        parts.append(sampled.reshape(-1))
+        used += sampled.size
+    resampled = np.flatnonzero(rows[:, _COL["exact"]] == 0)
+    for i in resampled:
+        bh, bw = int(sh[i]), int(sw[i])
+        x_hi, y_hi = _ext_hi(b[i], (bh, bw))
+        at = _paste_coords(b[i], x_hi, y_hi, (bh, bw), (h, w))
+        if at is None:
+            continue
+        region, ys, xs = at
+        rows[i, [_COL["ry0"], _COL["ry1"], _COL["rx0"], _COL["rx1"]]] = region
+        ty, tx = _triples(*ys), _triples(*xs)
+        rows[i, _COL["paste_rows"]], rows[i, _COL["paste_cols"]] = used, used + ty.size
+        parts += [ty, tx]
+        used += ty.size + tx.size
+
+    coords = np.concatenate(parts).astype(np.int32) if parts else np.zeros((0,), np.int32)
+    data = np.concatenate([rows.reshape(-1), tile_start, resampled, coords]).astype(np.int32)
+    o1 = rows.size
+    o2 = o1 + len(tile_start)
+    o3 = o2 + len(resampled)
+    acc_words = _ACC_BASE + int(np.sum(_ACC_HEADER + 6 * cap))
+    return WindowTable(data, data[:o1].reshape(n, len(_TABLE_COLS)), index, data[o1:o2], data[o2:o3], data[o3:],
+                       (o1, o2, o3), tuple(groups), int(plane.sum()), acc_words)
+
+
+class _RefineArgs(ctypes.Structure):
+    """``RefineArgs`` of ``csrc/refine.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "table", "tile_start", "coords", "resampled", "img", "mask", "canvas", "acc",
+        "px", "merged", "fgs", "ids", "inv", "ids_inv",
+    )] + [(name, ctypes.c_int) for name in (
+        "n_win", "n_tiles", "n_resampled", "img_h", "img_w", "canvas_h", "canvas_w", "inpaint",
+    )]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("refine.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name in ("ctd_refine_candidates", "ctd_refine_merge", "ctd_refine_fill"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_RefineArgs), p]
+        getattr(lib, name).restype = i
+    lib.ctd_refine_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.ctd_refine_layout.restype = i
+    lib.ctd_refine_error_string.argtypes = [i]
+    lib.ctd_refine_error_string.restype = ctypes.c_char_p
+    layout = (ctypes.c_int * 3)()
+    lib.ctd_refine_layout(layout)
+    if tuple(layout) != (len(_TABLE_COLS), _ACC_HEADER, _TILE):
+        raise RuntimeError(f"csrc/refine.cu's layout {tuple(layout)} differs from ops/refine.py's")
+    return lib
+
+
+def _launch(name: str, args: _RefineArgs, stream: int) -> None:
+    lib = _lib()
+    rc = getattr(lib, name)(ctypes.byref(args), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed: {lib.ctd_refine_error_string(rc).decode()}")
+
+
+def launch_candidates(args: _RefineArgs, stream: int) -> None:
+    """Enqueue window_in, xor and candidates (no sync)."""
+    _launch("ctd_refine_candidates", args, stream)
+    launch_candidates.launches += 1
+
+
+def launch_merge(args: _RefineArgs, stream: int) -> None:
+    """Enqueue merge 0..3 and finish (no sync)."""
+    _launch("ctd_refine_merge", args, stream)
+    launch_merge.launches += 1
+
+
+def launch_fill(args: _RefineArgs, stream: int) -> None:
+    """Enqueue fill_sums, fill_paste and the resampled paste (no sync)."""
+    _launch("ctd_refine_fill", args, stream)
+    launch_fill.launches += 1
+
+
+launch_candidates.launches = 0
+launch_merge.launches = 0
+launch_fill.launches = 0
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One pinned, non-blocking copy of a host array to the device."""
+    return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """A non-blocking copy of a device tensor into pinned host memory; it
+    holds the value once the stream has passed the copy."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def _on_device(dev: torch.device):
+    return torch.cuda.device(dev)
+
+
+def _carry_flag(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    flag = getattr(src, "_bound_flag", None)
+    if flag is not None:
+        dst._bound_flag = flag
+    return dst
+
+
+def check_bounds(*canvases: torch.Tensor) -> None:
+    """Raise if K1 hit a loop bound while :func:`refine_pages` (or
+    :func:`refine_page`) made any of ``canvases``.  A card canvas carries
+    its flag in pinned host memory, copied in the stream after the refine,
+    so call this after a download of the canvas (which waited for the
+    stream); a CPU canvas carries none."""
+    for canvas in canvases:
+        flag = getattr(canvas, "_bound_flag", None)
+        if flag is not None and int(flag[0]) != 0:
+            raise RuntimeError("refine_pages: a union-find loop exceeded its bound")
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _refine_pages_cuda(imgs, masks, boxes, pids, refine_mode, pad_hw) -> torch.Tensor:
+    """:func:`refine_pages` on the card: the windows in chains of at most
+    ``_CHAIN_WINDOWS`` (one for any page's blocks), each one table upload,
+    the stages of ``csrc/refine.cu`` over all its windows at once and K1
+    twice a group; one zeroed buffer holds the canvas and every chain's
+    accumulators.  All enqueued, nothing read back: the loop-bound flag
+    goes to pinned memory for :func:`check_bounds`."""
+    p, h, w = masks.shape
+    if imgs.dtype != torch.uint8 or masks.dtype != torch.uint8 or tuple(imgs.shape) != (p, h, w, 3):
+        raise ValueError(f"refine_pages: expected uint8 (P, H, W, 3) and (P, H, W), got {tuple(imgs.shape)} "
+                         f"{imgs.dtype}, {tuple(masks.shape)} {masks.dtype}")
+    if imgs.device != masks.device:
+        raise ValueError("refine_pages: images and masks on different devices")
+    dev = masks.device
+    imgs, masks = imgs.contiguous(), masks.contiguous()
+    tabs = [window_table(boxes[i:i + _CHAIN_WINDOWS], pids[i:i + _CHAIN_WINDOWS], (h, w))
+            for i in range(0, len(boxes), _CHAIN_WINDOWS)]
+    acc_at = np.cumsum([0] + [tab.acc_words for tab in tabs])
+    hc, wc = h + pad_hw[0], w + pad_hw[1]
+    canvas_bytes = _aligned(p * hc * wc)
+    with _on_device(dev):
+        zeroed = torch.zeros(canvas_bytes + 4 * int(acc_at[-1]), dtype=torch.uint8, device=dev)
+        canvas = zeroed[: p * hc * wc].view(p, hc, wc)
+        out = canvas[:, :h, :w]
+        if not tabs:
+            return out
+        acc = zeroed[canvas_bytes:].view(torch.int32)
+        for tab, at in zip(tabs, acc_at):
+            _chain(tab, imgs, masks, canvas, acc[at:], acc[:1], refine_mode)
+        out._bound_flag = _to_pinned(acc[:1])
+    return out
+
+
+def _chain(tab: WindowTable, imgs, masks, canvas, acc, err, refine_mode) -> None:
+    """Enqueue one chain: upload ``tab``, then the stages and K1 on scratch
+    of its size; K1 ORs its loop-bound flags into ``err``."""
+    dev = masks.device
+    _, h, w = masks.shape
+    _, hc, wc = canvas.shape
+    n_win, n_res = len(tab.index), len(tab.resampled)
+    count("refine_windows", n_win)
+    count("refine_windows_exact", n_win - n_res)
+    count("refine_windows_resampled", n_res)
+    count("refine_dispatches")
+    table = _upload(tab.data, dev)
+    k1_px = max(4 * k * ph * pw for ph, pw, k, _ in tab.groups)
+    k1_chunks = max(4 * k * ids_chunk_count(ph, pw) for ph, pw, k, _ in tab.groups)
+    sizes = {"px": 8 * tab.n_px, "merged": tab.n_px, "fgs": 4 * tab.n_px, "ids": 16 * tab.n_px,
+             "inv": tab.n_px, "ids_inv": 4 * tab.n_px, "parent": 4 * k1_px, "counts": 4 * k1_chunks}
+    offs, total = {}, 0
+    for name, size in sizes.items():
+        offs[name] = total
+        total += _aligned(size)
+    scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+    base, tbase = scratch.data_ptr(), table.data_ptr()
+    o1, o2, o3 = tab.offsets
+    args = _RefineArgs(
+        tbase, tbase + 4 * o1, tbase + 4 * o3, tbase + 4 * o2, imgs.data_ptr(), masks.data_ptr(),
+        canvas.data_ptr(), acc.data_ptr(), *(base + offs[k] for k in ("px", "merged", "fgs", "ids", "inv", "ids_inv")),
+        n_win, int(tab.tile_start[-1]), n_res, h, w, hc, wc, int(refine_mode == REFINEMASK_INPAINT),
+    )
+    stream = _stream(dev)
+
+    def plane(name, at, n, hw, dtype=torch.uint8):
+        size = 4 if dtype == torch.int32 else 1
+        start = offs[name] + size * at
+        return scratch[start: start + size * n * hw[0] * hw[1]].view(dtype).view(n, *hw)
+
+    def label(src, dst, planes):
+        for ph, pw, k, first in tab.groups:
+            n, at = planes * k, planes * first
+            cc_ids_fused_into(plane(src, at, n, (ph, pw)), plane("parent", 0, n, (ph, pw), torch.int32),
+                              plane("counts", 0, 1, (n, ids_chunk_count(ph, pw)), torch.int32)[0],
+                              plane(dst, at, n, (ph, pw), torch.int32), err)
+
+    launch_candidates(args, stream)
+    label("fgs", "ids", 4)
+    launch_merge(args, stream)
+    label("inv", "ids_inv", 1)
+    launch_fill(args, stream)

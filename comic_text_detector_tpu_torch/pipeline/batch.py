@@ -43,7 +43,7 @@ from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import db_decode_batch
 from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
 from comic_text_detector_tpu_torch.ops.nms import nms_single
-from comic_text_detector_tpu_torch.ops.refine import refine_pages
+from comic_text_detector_tpu_torch.ops.refine import check_bounds, refine_pages
 from comic_text_detector_tpu_torch.ops.resize import (
     letterbox_device_u8,
     letterbox_shape,
@@ -304,10 +304,11 @@ class BatchTextDetector:
         return tickets
 
     def _finish_refine(self, ticket) -> np.ndarray:
-        packed, _canvases, _imgs, _masks, gi, shape, fetch_cache = ticket
+        packed, canvases, _imgs, _masks, gi, shape, fetch_cache = ticket
         with span("fetch"):
             if "host" not in fetch_cache:
                 fetch_cache["host"] = to_host(packed)
+                check_bounds(canvases)  # the download waited for the refine
             return unpack_rows(fetch_cache["host"][gi], shape[1])
 
     def _rescue_undetected(self, ticket, refined, raw_mask, blk_list, img_shape, refine_mode):
@@ -320,6 +321,7 @@ class BatchTextDetector:
         if extra is None:
             return refined
         extra_host = unpack_rows(to_host(packbits_rows(extra > 0)), shape[1])
+        check_bounds(extra)
         return np.where(extra_host > 0, np.uint8(255), refined)
 
     def process_batch(

@@ -36,7 +36,7 @@ from comic_text_detector_tpu_torch.ops.bits import packbits_rows
 from comic_text_detector_tpu_torch.ops.db_decode import boxes_from_device_rects, db_decode_full_device
 from comic_text_detector_tpu_torch.ops.finalize import mask_to_u8
 from comic_text_detector_tpu_torch.ops.nms import nms_single
-from comic_text_detector_tpu_torch.ops.refine import refine_page
+from comic_text_detector_tpu_torch.ops.refine import check_bounds, refine_page
 from comic_text_detector_tpu_torch.ops.resize import (
     letterbox_device_u8,
     letterbox_np,
@@ -326,16 +326,21 @@ def _refine_on_device(img_dev, mask_dev, blk_list, img_shape, refine_mode, undet
     with span("refine"):
         windows = [expand_textwindow(img_shape, blk.xyxy, expand_r=16) for blk in blk_list]
         canvas = refine_page(img_dev, mask_dev, np.asarray(windows).reshape(-1, 4), refine_mode)
+        made = [canvas]
         if undetected_mask is not None:
             refined_orig = _download_canvas(canvas, im_w)
+            check_bounds(canvas)
             extra = _rescue_undetected_device(
                 img_dev, mask_dev, canvas, refined_orig, undetected_mask, blk_list, img_shape, refine_mode
             )
             if extra is None:
                 return refined_orig
+            made.append(extra)
             canvas = canvas | extra
     with span("fetch"):
-        return _download_canvas(canvas, im_w)
+        refined = _download_canvas(canvas, im_w)
+    check_bounds(*made)  # the download waited for the refine
+    return refined
 
 
 def _rescue_undetected_device(

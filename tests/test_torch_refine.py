@@ -11,6 +11,11 @@ them on the CPU: connected components through the grid-stacked XLA sweeps,
 component sums through the scatter-add.  Those with float32 steps are
 jitted, as they run inside the JAX refine's jitted dispatch: XLA fuses
 ``a * b + c`` into one rounding only when it compiles the expression whole.
+
+The card's route (``csrc/refine.cu``) is held here in two parts: its table
+of windows, pure NumPy, against the plain route's geometry on the CPU; its
+stages, in the tests marked ``cuda``, byte for byte against the plain route
+on CPU copies of the same inputs (``tests/torch_refine_cases.py``).
 """
 
 import os
@@ -27,6 +32,7 @@ import jax.numpy as jnp
 from comic_text_detector_tpu.ops import refine as JR
 from comic_text_detector_tpu_torch.ops import refine as TR
 from comic_text_detector_tpu_torch.ops.bits import packbits_rows
+from tests import torch_refine_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAGE_HW = (660, 700)
@@ -290,3 +296,148 @@ def test_caps_parse_and_override():
     env["CTD_REFINE_CAPS"] = "1,2"
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True, text=True)
     assert out.returncode != 0 and "CTD_REFINE_CAPS" in out.stderr
+
+
+# ---------------------------------------------------------------------------
+# the card route: its table of windows (NumPy, here) and its stages (card)
+# ---------------------------------------------------------------------------
+
+
+def _table_boxes(seed: int, hw=PAGE_HW):
+    """Seeded windows of every bucket and beyond, some clamped at the page
+    edges, some degenerate, on two pages."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    boxes = []
+    for _ in range(24):
+        bw, bh = int(rng.integers(1, 800)), int(rng.integers(1, 800))
+        x1, y1 = int(rng.integers(-40, w)), int(rng.integers(-40, h))
+        boxes.append([max(x1, 0), max(y1, 0), min(x1 + bw, w), min(y1 + bh, h)])
+    boxes += [[0, 0, w, h], [w - 10, h - 10, w, h], [30, 650, 60, 640]]
+    return np.asarray(boxes, np.int32), rng.integers(0, 2, len(boxes))
+
+
+def _triples(i0, i1, frac):
+    return np.stack([i0, i1, frac.astype(np.float32).view(np.int32)], axis=-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_window_table_matches_the_plain_geometry(seed):
+    """Each row's box, page, bucket, in-window rectangle, sampling rows and
+    columns and resampled paste equal what the plain route computes with
+    _bucket_index, _in_window, _sample_coords and _paste_coords."""
+    h, w = PAGE_HW
+    boxes, pids = _table_boxes(seed)
+    tab = TR.window_table(boxes, pids, PAGE_HW)
+    c = TR._COL
+    assert sorted(tab.index.tolist()) == list(range(len(boxes)))
+    for row, j in zip(tab.rows, tab.index):
+        box = boxes[j]
+        assert row[c["x0"]:c["y1"] + 1].tolist() == box.tolist() and row[c["page"]] == pids[j]
+        bi = TR._bucket_index(int(box[2] - box[0]), int(box[3] - box[1]))
+        sh, sw, _, cap = TR.BUCKETS[bi]
+        assert (row[c["sh"]], row[c["sw"]], row[c["cap"]], row[c["exact"]]) == (sh, sw, cap, int(bi >= 0))
+        in_win = (np.arange(sh) < row[c["ny"]])[:, None] & (np.arange(sw) < row[c["nx"]])[None, :]
+        np.testing.assert_array_equal(in_win, TR._in_window(box[None], (sh, sw))[0])
+        x_hi, y_hi = TR._ext_hi(box[None], (sh, sw))
+        for lo, hi, n_src, n, col in ((box[1:2], y_hi, h, sh, "rows"), (box[0:1], x_hi, w, sw, "cols")):
+            got = tab.coords[row[c[col]]: row[c[col]] + 3 * n].reshape(n, 3)
+            np.testing.assert_array_equal(got, _triples(*(a[0] for a in TR._sample_coords(lo, hi, n_src, n))))
+        at = TR._paste_coords(box, x_hi[0], y_hi[0], (sh, sw), PAGE_HW)
+        if bi >= 0 or at is None:
+            assert row[c["ry1"]] - row[c["ry0"]] <= 0 or bi >= 0
+            continue
+        region, ys, xs = at
+        assert tuple(row[[c["ry0"], c["ry1"], c["rx0"], c["rx1"]]]) == region
+        for tri, col in ((ys, "paste_rows"), (xs, "paste_cols")):
+            n = len(tri[0])
+            np.testing.assert_array_equal(tab.coords[row[c[col]]: row[c[col]] + 3 * n].reshape(n, 3), _triples(*tri))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_window_table_lays_out_planes_groups_and_tiles(seed):
+    """Windows sit at the top-left of their K1 group's plane (at most
+    512 x 512 elements), planes and candidate planes tile their buffers
+    without overlap, and tiles and accumulators follow in order."""
+    boxes, pids = _table_boxes(seed)
+    tab = TR.window_table(boxes, pids, PAGE_HW)
+    c = TR._COL
+    rows = tab.rows.astype(np.int64)
+    plane = rows[:, c["plane_h"]] * rows[:, c["stride"]]
+    assert (plane <= 512 * 512).all()
+    assert (rows[:, c["plane_h"]] >= rows[:, c["sh"]]).all() and (rows[:, c["stride"]] >= rows[:, c["sw"]]).all()
+    np.testing.assert_array_equal(rows[:, c["px"]], np.cumsum(plane) - plane)
+    assert tab.n_px == plane.sum()
+    seen = 0
+    for ph, pw, k, first in tab.groups:
+        members = np.flatnonzero(rows[:, c["px"]] >= first)[:k]
+        assert (rows[members, c["plane_h"]] == ph).all() and (rows[members, c["stride"]] == pw).all()
+        np.testing.assert_array_equal(rows[members, c["cand"]], 4 * first + np.arange(k) * ph * pw)
+        assert (rows[members, c["cand_step"]] == k * ph * pw).all()
+        seen += k
+    assert seen == len(boxes)
+    tiles = -(-rows[:, c["plane_h"]] // TR._TILE) * -(-rows[:, c["stride"]] // TR._TILE)
+    np.testing.assert_array_equal(tab.tile_start, np.concatenate([[0], np.cumsum(tiles)]))
+    words = TR._ACC_HEADER + 6 * rows[:, c["cap"]]
+    np.testing.assert_array_equal(rows[:, c["acc"]], TR._ACC_BASE + np.cumsum(words) - words)
+    assert tab.acc_words == TR._ACC_BASE + words.sum()
+    np.testing.assert_array_equal(tab.resampled, np.flatnonzero(rows[:, c["exact"]] == 0))
+
+
+def test_window_table_reads_the_caps_and_buckets_at_call_time(monkeypatch):
+    """CTD_REFINE_CAPS is read at import; a BUCKETS patched afterwards (the
+    r4 caps) reaches the table, and an empty window list gives no row."""
+    r4 = (2048, 8192, 8192, 8192, 8192, 8192)
+    monkeypatch.setattr(TR, "BUCKETS", tuple((h, w, s, c) for (h, w, s, _), c in zip(TR.BUCKETS, r4)))
+    boxes, pids = _table_boxes(3)
+    tab = TR.window_table(boxes, pids, PAGE_HW)
+    for row, j in zip(tab.rows, tab.index):
+        bi = TR._bucket_index(int(boxes[j, 2] - boxes[j, 0]), int(boxes[j, 3] - boxes[j, 1]))
+        assert row[TR._COL["cap"]] == r4[bi]
+    empty = TR.window_table(np.zeros((0, 4), np.int32), np.zeros((0,), np.int64), PAGE_HW)
+    assert len(empty.index) == 0 and empty.groups == () and empty.tile_start.tolist() == [0]
+
+
+def test_cpu_route_never_takes_the_card_route(pages, monkeypatch):
+    """A CPU tensor runs only the plain dispatches."""
+    def refuse(*args, **kw):
+        raise AssertionError("the card route ran on a CPU tensor")
+
+    monkeypatch.setattr(TR, "_refine_pages_cuda", refuse)
+    imgs, masks = pages
+    got = TR.refine_page(torch.from_numpy(imgs[0]), torch.from_numpy(masks[0]), np.asarray([[10, 10, 210, 190]]))
+    assert int(got.count_nonzero()) > 0
+
+
+def test_check_bounds_reads_the_flag_a_canvas_carries(monkeypatch):
+    canvas = torch.zeros((2, 4, 4), dtype=torch.uint8)
+    TR.check_bounds(canvas)  # a CPU canvas carries none
+    canvas._bound_flag = torch.tensor([0], dtype=torch.int32)
+    TR.check_bounds(canvas)
+    canvas._bound_flag = torch.tensor([1], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="bound"):
+        TR.check_bounds(canvas)
+    # refine_page hands its page's canvas the stack's flag
+    monkeypatch.setattr(TR, "refine_pages", lambda *a, **k: canvas)
+    with pytest.raises(RuntimeError, match="bound"):
+        TR.check_bounds(TR.refine_page(canvas[0], canvas[0, :, :], np.zeros((0, 4))))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the refine's stages have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", torch_refine_cases.CASES)
+def test_card_route_matches_plain_route(cuda_device, name):
+    """Each bucket with more windows than its old slot count, the resample
+    fallback, both refine modes, two pages, a window past its cap, no
+    window, the r4 caps and a call in several chains: byte-equal to the
+    plain route on the CPU, with no plain dispatch on the card."""
+    got = torch_refine_cases.check(name, cuda_device)
+    assert got["diff"] == 0, got
+    assert got["plain_dispatches_card"] == 0 and got["chains"] == got["chains_expected"], got
+    assert got["set"] > 0 or got["windows"] == 0, got
